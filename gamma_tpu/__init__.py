@@ -1,6 +1,6 @@
-"""gamma_tpu — a TPU-native vector index-and-query engine.
+"""gamma_tpu — a vector index-and-query engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability contract of
+A from-scratch JAX/XLA re-design of the capability contract of
 vearch/gamma (the C++ vector-search core of Vearch, Middleware'18):
 
   * document store mixing scalar fields and dense vectors
@@ -18,7 +18,7 @@ pointer-chasing C++ design — see SURVEY.md §7):
     "search during insert" property for free (reference:
     realtime/realtime_mem_data.cc:279-302 implements this with atomic
     cursors + delayed frees; we get it from immutability).
-  * Inverted lists are padded dense tensors in HBM
+  * Inverted lists are padded dense tensors in device memory
     (`codes[nlist, cap, M] u8`, `entries[nlist, cap] i32`,
     `lens[nlist] i32`); growth is capacity-doubling reallocation
     (reference: realtime_mem_data.cc:152-188 ExtendBucketMem).
@@ -28,11 +28,12 @@ pointer-chasing C++ design — see SURVEY.md §7):
     so hybrid search never materializes candidate lists on the host
     (reference: table/field_range_index.cc bitmaps + ivfpq.h:574-601
     IsValid checks in the innermost loop).
-  * All hot loops are MXU matmuls or Pallas kernels: coarse assign is a
+  * Hot loops are matmuls or fused XLA reductions: coarse assign is a
     (nq x d x nlist) matmul, PQ training is vmapped Lloyd iterations,
-    the ADC scan uses on-the-fly LUT construction.
-  * Multi-chip: inverted lists shard over a `jax.sharding.Mesh` axis;
-    each chip produces a local top-k which is merged with one
+    the ADC scan uses on-the-fly LUT construction.  The accelerator is
+    an NVIDIA GPU (H100); tests run on the CPU backend.
+  * Multi-device: inverted lists shard over a `jax.sharding.Mesh` axis;
+    each device produces a local top-k which is merged with one
     all_gather (reference's multi-GPU analog: gpu.cc:588-601).
 """
 

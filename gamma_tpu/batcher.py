@@ -4,8 +4,8 @@ Reference: index/impl/gpu/gamma_index_ivfpq_gpu.cc:52,557-640 — the GPU
 path runs a dedicated search thread that dequeues up to kMaxBatch=200
 concurrently-submitted queries, groups them by compatible parameters
 (nprobe), runs ONE batched device search, and notifies the waiting
-callers.  SURVEY §2.8 calls this "the closest in-repo model for the TPU
-design": device throughput comes from batch width, so N concurrent
+callers.  SURVEY §2.8 calls this the closest in-repo model for this
+design: device throughput comes from batch width, so N concurrent
 1-query callers must become one [N, d] dispatch, not N serialized ones.
 
 Mechanics here: callers `submit(key, fn, queries)` and block on an event;

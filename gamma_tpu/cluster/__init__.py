@@ -6,7 +6,8 @@ router/ Go services, see reference benchs/README.md topology).  The gamma
 repo itself contributes the per-partition engine plus the migration hooks
 (c_api/gamma_api.h:194-206).  Here the same composition is implemented
 over the in-repo socket protocol (gamma_tpu/server.py): each partition
-server is a `serve()` process that owns one engine (one TPU host), and
+server is a `serve()` process that owns one engine (one GPU — see
+docs/MULTIHOST.md for one process per card), and
 `GammaRouter` hash-partitions documents and scatter-gathers searches.
 
 Design doc: docs/MULTIHOST.md (tier 2).  No cross-host collective is

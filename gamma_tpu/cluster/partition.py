@@ -7,8 +7,12 @@ it is this repo's GammaEngine).  Two launch modes:
   * `launch_local(n, base)` — n in-process threaded servers on unix
     sockets (tests / single-host multi-partition);
   * `python -m gamma_tpu.cluster.partition --socket PATH` — a standalone
-    process per TPU host (one engine per host; the engine's own mesh
-    sharding covers the host's chips, docs/MULTIHOST.md tier 1).
+    process per GPU.  On a multi-GPU host start each partition server
+    with CUDA_VISIBLE_DEVICES naming its one card: a JAX process
+    reserves about 75% of the memory of every card it can see, so a
+    second process that sees the same card fails for want of memory
+    (docs/MULTIHOST.md).  One engine spanning all of a host's cards uses
+    the engine's own mesh sharding instead (enable_sharded_search).
 """
 
 from __future__ import annotations
@@ -50,7 +54,12 @@ def launch_local(n: int, base_dir: str) -> LocalCluster:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description="gamma-tpu partition server")
+    ap = argparse.ArgumentParser(
+        description="gamma-tpu partition server: one process per GPU.  "
+                    "On a multi-GPU host set CUDA_VISIBLE_DEVICES to this "
+                    "server's one card (e.g. CUDA_VISIBLE_DEVICES=2): a "
+                    "JAX process reserves ~75% of every card it sees, so "
+                    "servers sharing a visible card fail for memory.")
     ap.add_argument("--socket", help="unix socket path")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=0)

@@ -181,14 +181,14 @@ class IVFPQParams:
     # "auto" | "dense" | "gather" — see gamma_tpu/index/ivfpq.py docstring
     scan_mode: str = "auto"
     # capacity-tier posting payload: "sq8" (residual int8 sidecar, exact
-    # scan, no rerank — ops/pallas_gsq.py) | "pq" (M-byte ADC scan, the
+    # scan, no rerank — ops/sq.py) | "pq" (M-byte ADC scan, the
     # extreme-capacity format); "" → the model's default
     gather_payload: str = ""
     # extra split-biggest k-means rounds bounding the longest inverted
     # list near the mean (ops/kmeans._rebalance).  The longest list sets
     # the posting cap AND the per-probe scan width (cap_eff): at the 10M
     # geometry the default's 3x-mean max list tripled the gather-tier
-    # scan cost (experiments/exp_tenm.py)
+    # scan width
     train_rebalance: int = 2
 
     @staticmethod
@@ -216,18 +216,18 @@ class IVFPQParams:
                                       p.train_rebalance))
         # the reference accepts an "hnsw" sub-object selecting an HNSW
         # coarse quantizer (gamma_index_ivfpq.cc:146-156 via the params'
-        # GetObject("hnsw")).  This engine SUBSTITUTES flat MXU assign
-        # (one B x d x nlist matmul beats graph traversal on TPU for
+        # GetObject("hnsw")).  This engine SUBSTITUTES flat assign (one
+        # B x d x nlist matmul instead of a graph traversal for
         # nlist <= ~64k) — fail loudly instead of silently ignoring a
         # param that changes the reference's recall/latency profile.
         for key in ("hnsw", "quantizer_type"):
             if key in d and str(d[key]).lower() not in ("", "flat"):
                 raise ValueError(
                     f"IVFPQ param {key!r}={d[key]!r}: the HNSW coarse "
-                    "quantizer is substituted by flat MXU assignment on "
-                    "TPU (documented deviation, see index/ivfpq.py "
-                    "module docstring); omit the param or use the "
-                    "standalone HNSW retrieval model")
+                    "quantizer is substituted by flat matmul assignment "
+                    "(documented deviation, see index/ivfpq.py module "
+                    "docstring); omit the param or use the standalone "
+                    "HNSW retrieval model")
         return p
 
 
@@ -243,11 +243,10 @@ class SearchParams:
     has_rank: bool = True              # exact rerank with raw vectors
     l2_sqrt: bool = False
     scan_mode: Optional[str] = None    # per-request "dense"/"gather" override
-    recall_target: float = 0.95        # ApproxTopK coarse recall (dense mode)
     ef_search: Optional[int] = None    # HNSW beam width (reference: efSearch)
     # SQ8 capacity tier: rerank the top-recall_num exact-SQ candidates
-    # against the raw store mirror (recovers the ~0.3 pt quantization
-    # misrank at 10M-scale near-tie density, experiments/exp_tenm.py).
+    # against the raw store mirror (recovers the quantization misrank at
+    # 10M-scale near-tie density).
     # Off by default: the tier's point is rerank-free serving, and the
     # mirror may not be resident at capacity scales.
     sq_rerank: bool = False
@@ -272,7 +271,8 @@ class SearchParams:
         p.l2_sqrt = bool(d.get("l2_sqrt", False))
         if "scan_mode" in d:
             p.scan_mode = str(d["scan_mode"])
-        p.recall_target = float(d.get("recall_target", p.recall_target))
+        # keys this engine no longer reads (older clients still send the
+        # retired approximate-select recall target) are ignored
         if "efSearch" in d or "ef_search" in d:
             p.ef_search = int(d.get("efSearch", d.get("ef_search")))
         p.sq_rerank = bool(d.get("sq_rerank", False))

@@ -25,7 +25,6 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -44,6 +43,7 @@ from gamma_tpu.table.range_index import MultiFieldsRangeIndex
 from gamma_tpu.table.table import Table
 from gamma_tpu.utils.bitmap import BitmapManager
 from gamma_tpu.utils.fileio import atomic_write_json, read_json
+from gamma_tpu.utils.jax_cache import enable_compilation_cache
 from gamma_tpu.utils.perf import PerfTool
 from gamma_tpu.vector.vector_manager import VectorManager
 
@@ -57,24 +57,10 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache: capacity-growth shape changes
-    recompile; on remote-compile TPU setups each compile costs tens of
-    seconds, so cache them across runs."""
-    try:
-        if jax.config.jax_compilation_cache_dir is None:
-            jax.config.update("jax_compilation_cache_dir",
-                              os.path.expanduser("~/.cache/gamma_tpu_xla"))
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:       # pragma: no cover - cache is best-effort
-        pass
-
-
 class GammaEngine:
     def __init__(self, config: EngineConfig):
         self.config = config
-        _enable_compilation_cache()
+        enable_compilation_cache()
         os.makedirs(config.path, exist_ok=True)
         from gamma_tpu.utils.log import configure as _configure_log
         self.log = _configure_log(config.log_dir)
@@ -624,7 +610,7 @@ class GammaEngine:
     @staticmethod
     def _sp_key(sp: SearchParams) -> Tuple:
         return (sp.metric_type, sp.nprobe, sp.recall_num, sp.has_rank,
-                sp.l2_sqrt, sp.scan_mode, sp.recall_target, sp.ef_search)
+                sp.l2_sqrt, sp.scan_mode, sp.ef_search)
 
     def _search_one_field(self, vq: VectorQuery, request: Request,
                           sp: SearchParams, pen_doc: jnp.ndarray
@@ -655,9 +641,9 @@ class GammaEngine:
             brute = request.brute_force_search or model is None
             # unfiltered requests can skip the doc-space penalty gather
             # inside the gather-mode scans (validity is decidable from
-            # the posting state + the live watermark; the gather costs
-            # ~5x the ADC kernel on TPU).  Multi-vid stores keep the
-            # doc-aligned penalty (vid->doc mapping happens in-scan).
+            # the posting state + the live watermark).  Multi-vid stores
+            # keep the doc-aligned penalty (vid->doc mapping happens
+            # in-scan).
             validity_n = (self._live_flushed
                           if (not request.range_filters
                               and not request.term_filters)
@@ -762,7 +748,7 @@ class GammaEngine:
                               n_query_shards: int = 1) -> None:
         """Snapshot the (trained) IVFPQ index for `field` onto a device
         mesh: inverted lists + raw rows sharded over the list axis,
-        searches merged over ICI.  Call again after bulk ingest to
+        searches merged by collectives.  Call again after bulk ingest to
         refresh the snapshot; single-chip realtime search keeps serving
         newer docs in the meantime."""
         import jax as _jax
@@ -827,22 +813,20 @@ class GammaEngine:
                 sh["dense"] = shard_dense(sh["mesh"], *snap)
             snap_n = sh["snap_n"]["dense"]
             key = ("dense", max(sp.recall_num, k), k,
-                   self._result_metric(sp), sp.has_rank,
-                   sp.recall_target, b_pad)
+                   self._result_metric(sp), sp.has_rank, b_pad)
             fn = sh["fns"].get(key)
             if fn is None:
                 fn = sharded_dense_search_fn(
                     sh["mesh"], recall_num=key[1], k=key[2],
                     metric=key[3], rerank=key[4],
-                    rows_per_shard=sh["dense"].rows_per_shard,
-                    recall_target=sp.recall_target)
+                    rows_per_shard=sh["dense"].rows_per_shard)
                 sh["fns"][key] = fn
             pen = self._pad_pen(pen_doc, sh["dense"].recon.shape[0])
             d, vid = fn(sh["dense"], qrot, pen, qd)
             dists, docids = np.asarray(d), np.asarray(vid)
         elif getattr(model, "sq_active", False):
             # capacity tier with the residual-SQ8 sidecar: exact scan,
-            # ONE ICI merge, no psum rerank (parallel/sharded.py)
+            # ONE collective merge, no psum rerank (parallel/sharded.py)
             from gamma_tpu.parallel import (shard_ivfsq,
                                             sharded_ivfsq_search_fn)
             if sh.get("sq") is None:
@@ -856,8 +840,7 @@ class GammaEngine:
                         model.sq_norms, model.sq_scale, model.sq_off,
                         cap_eff=model._cap_eff())
             snap_n = sh["snap_n"]["sq"]
-            # validity fast path: the doc-space penalty gather costs ~5x
-            # the scan kernel.  Safe only when there is nothing the
+            # validity fast path (no doc-space penalty gather).  Safe only when there is nothing the
             # penalty would mask: no filters AND no deletes since the
             # snapshot was frozen (snapshot tombstones are already in
             # its docids; later deletes exist only in pen_doc).

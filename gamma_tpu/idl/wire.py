@@ -4,7 +4,7 @@ Reference: idl/fbs/*.fbs (flatbuffers schemas for Request / Response /
 Doc / Table / Config / EngineStatus / BatchResult) consumed by the 24
 extern-C entry points in c_api/gamma_api.{h,cc}.
 
-TPU-native substitution (documented): flatbuffers' zero-copy accessors
+Substitution (documented): flatbuffers' zero-copy accessors
 earn their complexity when a C++ engine reads requests in-place.  Here
 the engine's data plane is device arrays, so the wire format optimizes
 for (a) zero-copy of the LARGE payloads — query/doc vectors travel as raw

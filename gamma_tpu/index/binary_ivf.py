@@ -7,7 +7,7 @@ Input contract deviation (documented): the reference ingests pre-binarized
 uint8 vectors; this engine's ingest path carries float vectors, so the
 model binarizes by sign (bit = x > 0) at train/add/search time.  Users
 with native binary data pass ±1 floats and get exact parity.  Hamming
-distance on TPU = XOR + `lax.population_count` on the VPU — no scalar
+distance = XOR + `lax.population_count` in one fused XLA reduction — no scalar
 loops.
 """
 

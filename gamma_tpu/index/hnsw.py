@@ -1,16 +1,16 @@
-"""HNSW-equivalent: TPU-native navigable neighbor-graph index.
+"""HNSW-equivalent: a batched navigable neighbor-graph index.
 
 Reference: index/impl/hnswlib/gamma_index_hnswlib.{h,cc} — vendored
 hnswlib graph ANN over MemoryRawVector with per-query efSearch.
 
 Design substitution (documented): hnswlib's insert-time hierarchical graph
 construction is a pointer-chasing, inherently sequential algorithm with no
-efficient TPU mapping.  The TPU-native equivalent keeps the capability
+efficient accelerator mapping.  This equivalent keeps the capability
 contract (graph ANN, efSearch/efConstruction/nlinks knobs, realtime adds,
-markDelete semantics) but re-derives both phases as batched MXU work:
+markDelete semantics) but re-derives both phases as batched matmul work:
 
-  * BUILD: an exact kNN graph from a chunked self-join (one
-    [chunk x d x N] matmul per chunk + ApproxTopK), then α-pruned
+  * BUILD: a kNN graph from a chunked self-join (one [chunk x d x N]
+    matmul per chunk + topk.select_min_k), then α-pruned
     (Vamana/DiskANN-style relative-neighborhood pruning — the batched
     analog of hnswlib's `getNeighborsByHeuristic2`), all on device.
   * SEARCH: multi-entry beam search with a FIXED iteration count — each
@@ -44,7 +44,7 @@ from gamma_tpu.index.registry import register_model
 from gamma_tpu.ops.distances import (BIG, l2_norms, pairwise_dist,
                                      pairwise_l2)
 from gamma_tpu.ops.flat_scan import flat_search
-from gamma_tpu.ops.topk import merge_topk
+from gamma_tpu.ops.topk import merge_topk, select_min_k
 from gamma_tpu.vector.raw_store import RawVectorStore
 
 NODE_PAD = 8192
@@ -98,18 +98,9 @@ def _build_knn(x, norms, valid_pen, row0, *, r, metric, n_chunks,
             d = d + pi[None, :]
             ids = t + jnp.arange(ic, dtype=jnp.int32)
             d = jnp.where(ids[None, :] == rows, BIG, d)   # drop self
-            if ic <= 2048:
-                nv, idx = jax.lax.top_k(-d, min(r + 1, ic))
-                vals = -nv
-            else:
-                vals, idx = jax.lax.approx_min_k(d, r + 1)
-            cw = vals.shape[1]
-            if cw < r + 1:
-                vals = jnp.pad(vals, ((0, 0), (0, r + 1 - cw)),
-                               constant_values=BIG)
-                idx = jnp.pad(idx, ((0, 0), (0, r + 1 - cw)))
+            vals, idx = select_min_k(d, r + 1)
             return merge_topk(bd, bi, vals,
-                              jnp.take(ids, idx), r + 1)
+                              jnp.take(ids, jnp.maximum(idx, 0)), r + 1)
 
         init = (jnp.full((BUILD_CHUNK, r + 1), BIG, jnp.float32),
                 jnp.full((BUILD_CHUNK, r + 1), -1, jnp.int32))
@@ -170,8 +161,8 @@ def _cluster_pass(x, norms, members, *, r, metric, ncl):
         d = d + jnp.where(mlist < 0, BIG, 0.0)[None, :]
         ii = jnp.arange(capm, dtype=jnp.int32)
         d = jnp.where(ii[None, :] == ii[:, None], BIG, d)   # drop self
-        vals, idx = jax.lax.approx_min_k(d, r + 1)
-        gids = jnp.take(mlist, idx)
+        vals, idx = select_min_k(d, r + 1)
+        gids = jnp.take(mlist, jnp.maximum(idx, 0))
         gids = jnp.where(vals >= BIG, -1, gids)
         vals = jnp.minimum(vals, BIG)
         tgt = jnp.where(mlist < 0, 0x40000000, mlist)
@@ -243,7 +234,7 @@ def _alpha_prune(nbr_vecs, nbr_ids, nbr_dists, *, alpha=1.2):
                               "fanout"))
 def _beam_search(vectors, vec_norms, links, queries, penalty,
                  *, ef, k, iters, metric, entry_stride, fanout=8):
-    """Batched BEST-FIRST beam search with expansion flags — the TPU
+    """Batched BEST-FIRST beam search with expansion flags — the batched
     form of hnswlib's searchBaseLayer: per step, only the `fanout` best
     UNEXPANDED beam entries expand (gather their neighbor lists + one
     batched scoring contraction); an expanded flag rides every beam slot
@@ -581,9 +572,9 @@ class HNSWIndex(RetrievalModel):
         # of attraction gets one.  This bounds recall: on clustered data
         # the beam converges inside whatever basins the entries hit, so
         # recall@10 saturates at ~P(an entry lands in the query's
-        # cluster) — measured 0.8719 at 2048 entries over a 1024-cluster
-        # 200k corpus (1 - e^-2 = 0.865).  The entry phase is one small
-        # MXU matmul (~4 MB of strided rows), negligible next to the
+        # cluster) — about 1 - e^-2 = 0.865 at 2048 entries over a
+        # 1024-cluster 200k corpus.  The entry phase is one small
+        # matmul (~4 MB of strided rows), negligible next to the
         # beam's per-step neighbor gathers, so sample densely: 8192
         # entries puts the miss probability at e^-8 ~ 3e-4.
         stride = max(1, self.n_nodes // max(8192, 16 * ef))

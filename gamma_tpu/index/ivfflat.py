@@ -124,12 +124,9 @@ class IVFFlatIndex(RetrievalModel):
             return d, rows, rows
         nprobe = min(sp.nprobe or max(1, self.p.ncentroids // 16),
                      self.p.ncentroids)
-        scan_impl = ("pallas" if jax.default_backend() == "tpu"
-                     else "xla")
         return ivf_scan.ivfflat_search(
             self.state, self.centroids, self.cent_norms, queries, penalty,
             dist_range, nprobe=nprobe, k=k, d=self.d, metric=metric,
-            scan_impl=scan_impl,
             cap_eff=ladder_256(max(self._max_len, 1), self.state.cap))
 
     def dump(self, path: str) -> None:

@@ -10,19 +10,16 @@ under the gamma realtime layer.  Capability contract kept:
 Documented deviation: the reference forces by_residual=false
 (ivfpqfs.cc:146) because its AVX2 shuffle wants ONE 16-entry LUT per
 query; that costs ~2 recall points at nlist≈2k.  Here by_residual
-defaults to TRUE — the grouped MXU kernel (ops/pallas_gadc.py) builds
-the per-(query, probed-list) residual LUT in-kernel from the grouped
-residuals, so residual coding is free on TPU.  Set params
-{"by_residual": false} for the reference layout.
+defaults to TRUE: the gather scan builds one LUT per (query, probed
+list) from the residuals either way.  Set params {"by_residual": false}
+for the reference layout.
 
-TPU-first substitutions:
+Substitutions:
   * the reference's bbs=32 AVX2 register blocking (vpshufb over 16-entry
-    LUTs) becomes a Pallas kernel whose 16-wide one-hot select-sum is the
-    VPU analog of the SIMD shuffle (ops/pallas_adc.py adc_scan_pallas_fs,
-    CAP_TILE_FS plays the bbs role); per-subquantizer one-hot work is 16x
-    smaller than the 8-bit kernel's;
+    LUTs) becomes the XLA LUT gather-sum over unpacked nibbles
+    (ops/ivf_scan.ivfpqfs_search);
   * dense scan mode is inherited unchanged — the reconstruction mirror is
-    decode(code) with no coarse term.
+    decode(code), plus the coarse centroid when by_residual.
 
 Defaults follow the reference: nsubvector=64 (d/2 at SIFT dims), so the
 code budget is 32 B/vec — the same as IVFPQ M=32 x 8 bit — with ~8x less
@@ -44,7 +41,6 @@ from gamma_tpu.index.registry import register_model
 from gamma_tpu.ops import ivf_scan, kmeans as km, pq as pq_ops
 from gamma_tpu.ops.distances import l2_norms
 from gamma_tpu.ops.flat_scan import flat_search
-from gamma_tpu.ops.pallas_adc import unpack_nibbles
 from gamma_tpu.vector.raw_store import RawVectorStore
 
 
@@ -54,8 +50,7 @@ def _encode_fastscan(x, cents, cnorms, cb, cb_norms, rot, *, d, has_rot,
                      recon_dtype=jnp.bfloat16, by_residual=True):
     """Fused ingest: rotate → coarse assign → 4-bit PQ → pack nibbles →
     reconstruct for the dense mirror.  by_residual=True quantizes the
-    residual (our default; the grouped TPU kernel builds residual LUTs
-    in-kernel for free); False keeps the reference's raw-vector layout
+    residual (our default); False keeps the reference's raw-vector layout
     (gamma_index_ivfpqfs.cc:146)."""
     xf = x.astype(jnp.float32)
     if has_rot:
@@ -95,8 +90,7 @@ class IVFPQFastScanIndex(IVFPQIndex):
                              "(codes pack two 4-bit entries per byte)")
         # deviation from the reference's forced by_residual=false
         # (ivfpqfs.cc:146): residual coding recovers ~2 recall points at
-        # nlist≈2k and costs nothing on TPU (per-(query,list) LUTs build
-        # in-kernel on the grouped MXU path)
+        # nlist≈2k; the gather scan builds per-(query, list) LUTs anyway
         self.by_residual = bool(p.get("by_residual", True))
         super().__init__(raw_store, p)
 
@@ -181,15 +175,13 @@ class IVFPQFastScanIndex(IVFPQIndex):
             return super().search(queries, penalty, sp, k, dist_range,
                                   validity_n=validity_n)
         nprobe = min(sp.nprobe or self.p.nprobe, self.p.ncentroids)
-        scan_impl = ("pallas" if jax.default_backend() == "tpu"
-                     else "xla")
         # _gather_exec routes the disk tier's rerank through the host
         # read-through path instead of the (absent) device mirror
         fn = functools.partial(ivf_scan.ivfpqfs_search,
                                by_residual=self.by_residual)
         return self._gather_exec(fn, q, queries,
                                  penalty, sp, k, recall_num, metric,
-                                 dist_range, nprobe, scan_impl,
+                                 dist_range, nprobe,
                                  validity_n=validity_n)
 
     # ---- persistence ----
@@ -214,7 +206,7 @@ class IVFPQFastScanIndex(IVFPQIndex):
         chunk = 262144
         for s in range(0, vflat.size, chunk):
             e = min(vflat.size, s + chunk)
-            codes = unpack_nibbles(jnp.asarray(cflat[s:e]))
+            codes = pq_ops.unpack_nibbles(jnp.asarray(cflat[s:e]))
             rec = pq_ops.decode_pq(self.pq, codes)[:, : self.d]
             if self.by_residual:
                 rec = rec + jnp.take(self.centroids,

@@ -2,13 +2,14 @@
 
 The C++ library (native/gamma_host.cc) provides the host-side storage
 engine (mmap segments + async-sync writer thread), the file-backed bitmap,
-and the sharded key→docid map — the TPU-native equivalents of the
+and the sharded key→docid map — the host-side equivalents of the
 reference's StorageManager/AsyncWriter (storage/), BitmapManager (util/),
 and libcuckoo map (table/table.h:185).
 
 Every wrapper has a pure-Python fallback (`available() == False`) so the
 package works where the .so has not been built; `build()` compiles it
-in-place with g++.
+in-place with g++ (native/build.sh; the library is a build output and is
+not committed).
 """
 
 from __future__ import annotations
@@ -24,15 +25,25 @@ _LIB: Optional[ctypes.CDLL] = None
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SO = os.path.join(_REPO, "native", "libgamma_host.so")
+_BUILD_ERROR = ""
 
 
 def build() -> bool:
+    global _BUILD_ERROR
     try:
         subprocess.run([os.path.join(_REPO, "native", "build.sh")],
-                       check=True, capture_output=True)
+                       check=True, capture_output=True, text=True)
         return _load() is not None
-    except Exception:
-        return False
+    except subprocess.CalledProcessError as exc:
+        _BUILD_ERROR = (exc.stderr or exc.stdout or str(exc)).strip()
+    except Exception as exc:
+        _BUILD_ERROR = repr(exc)
+    return False
+
+
+def build_error() -> str:
+    """Why the last build() failed ("" if it has not failed)."""
+    return _BUILD_ERROR
 
 
 def _load() -> Optional[ctypes.CDLL]:

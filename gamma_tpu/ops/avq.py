@@ -11,7 +11,7 @@ orthogonal error, so the k-means objective is
 with x_hat the ORIGINAL datapoint direction (kept when quantizing
 residuals).
 
-TPU-first re-derivation, applied per PQ subspace (the official ScaNN
+Re-derivation, applied per PQ subspace (the official ScaNN
 coordinate-descends subspaces under the full-vector loss; the per-
 subspace direction is the standard simplification and keeps every step a
 batched matmul):

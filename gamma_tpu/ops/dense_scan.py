@@ -1,22 +1,21 @@
-"""Dense (MXU) scan — the TPU-native execution of the ADC coarse pass.
+"""Dense scan — the matmul execution of the ADC coarse pass.
 
 Why this exists: the reference's hot loop is the ADC LUT scan
 (gamma_index_ivfpq.h:403-418 — `dis = dis0 + Σ_m LUT[m][code[m]]`), a
-scalar gather-accumulate that SIMD CPUs do well.  On TPU, LUT gathers
-forfeit the MXU and run on the scalar core (measured: 3.5-5.7 s/batch for
-XLA gather formulations vs 2 ms for a matmul of the same work).  But the
-ADC distance IS an exact L2 against the PQ reconstruction:
+scalar gather-accumulate that SIMD CPUs do well.  But the ADC distance
+IS an exact L2 against the PQ reconstruction:
 
     dis0 + Σ_m ||r_m - cb[m, code_m]||²  =  ||q - (c_list + recon)||²
 
-so scanning a bf16 reconstruction matrix with one (B × d × N) MXU matmul
-computes the SAME values the reference's scanner produces, at MXU speed.
-Memory trades 2 bytes/dim (vs M bytes/vector for codes); below ~50M
-vectors/chip this is the dominant mode, above it the gathered-list path
-(ops/ivf_scan.py) takes over — the engine picks automatically.
+so scanning a bf16 reconstruction matrix with one (B × d × N) matmul
+(bf16 operands, f32 accumulation) computes the same values the
+reference's scanner produces, on the matrix units.  Memory trades
+2 bytes/dim (vs M bytes/vector for codes); while the mirror fits its
+device budget (index/ivfpq.DENSE_BYTES_BUDGET) this is the default mode,
+beyond it the gathered-list path (ops/ivf_scan.py) takes over — the
+engine picks automatically.
 
-Candidate selection uses the TPU's native ApproxTopK custom call
-(jax.lax.approx_min_k) — a partial-reduce top-k built for retrieval —
+Candidate selection is ops/topk.select_min_k over the [B, N] scores,
 followed by exact rerank over raw vectors, mirroring the reference's
 recall_num-coarse-heap → rerank pipeline (gamma_index_ivfpq.cc:642-697).
 nprobe does not reduce work in a dense scan (the matmul touches every
@@ -33,26 +32,12 @@ import jax
 import jax.numpy as jnp
 
 from gamma_tpu.ops.distances import BIG
-
-
-def _approx_min_k(dist: jnp.ndarray, k: int, recall_target: float):
-    """approx_min_k with exact fallback for tiny candidate sets."""
-    n = dist.shape[-1]
-    if n <= max(4 * k, 2048):
-        nd, idx = jax.lax.top_k(-dist, min(k, n))
-        vals = -nd
-        if k > n:
-            pad = [(0, 0)] * (vals.ndim - 1) + [(0, k - n)]
-            vals = jnp.pad(vals, pad, constant_values=BIG)
-            idx = jnp.pad(idx, pad, constant_values=-1)
-        return vals, idx
-    return jax.lax.approx_min_k(dist, k, recall_target=recall_target)
+from gamma_tpu.ops.topk import select_min_k
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("recall_num", "k", "metric", "rerank",
-                     "recall_target"))
+    static_argnames=("recall_num", "k", "metric", "rerank"))
 def dense_scan_search_fast(recon: jnp.ndarray,   # [N_cap, d] bf16
                            bias: jnp.ndarray,    # [N_cap] f32 (see below)
                            queries: jnp.ndarray,      # [B, d] pre-rotated
@@ -60,15 +45,13 @@ def dense_scan_search_fast(recon: jnp.ndarray,   # [N_cap, d] bf16
                            raw: jnp.ndarray,          # [V_cap, d] rerank
                            live_n: jnp.ndarray,       # i32 scalar watermark
                            *, recall_num: int, k: int, metric: str = "l2",
-                           rerank: bool = True,
-                           recall_target: float = 0.95):
+                           rerank: bool = True):
     """Unfiltered dense scan → (dists [B, k] f32, vids [B, k] i32).
 
-    The general path (dense_scan_search) feeds ApproxTopK an expression
-    with TWO broadcast [N] operands (norms + penalty); XLA then cannot
-    fuse the elementwise chain into the TopK consumer and materializes
-    the [B, N] f32 distance tensor in HBM twice — measured +45% batch
-    time at 1M rows.  For UNFILTERED requests (the engine passes
+    The general path (dense_scan_search) builds its selection score from
+    TWO broadcast [N] operands (norms + penalty), which can make XLA
+    materialize the [B, N] f32 distance tensor twice.  For UNFILTERED
+    requests (the engine passes
     validity_n, mirroring the gather path's fast form) candidate
     validity is decidable from mirror state alone, so the model folds
     norms + slot validity into ONE maintained `bias` array:
@@ -76,14 +59,13 @@ def dense_scan_search_fast(recon: jnp.ndarray,   # [N_cap, d] bf16
         l2: bias = recon_norms + recon_valid   (dead rows ≈ +BIG)
         ip: bias = recon_valid
 
-    and the selection score is a single fused matmul + one broadcast:
+    and the selection score is a single matmul + one broadcast:
 
         l2: s = (-2 q)·recon + bias    (ranks like the true distance;
                                         the per-query ||q||² constant is
                                         added AFTER selection — exact)
         ip: s = (-q)·recon + bias
 
-    Measured 1.29 ms vs 1.82 ms per 256-query batch at 1M×128
     (the reference's analogous fast form: the IsValid bitmap test fused
     in the scanner hot loop, gamma_index_ivfpq.h:578-600)."""
     if metric == "ip":
@@ -95,7 +77,7 @@ def dense_scan_search_fast(recon: jnp.ndarray,   # [N_cap, d] bf16
         preferred_element_type=jnp.float32)
     s = cross + bias[None, :]
     r = max(recall_num, k)
-    rd, rvid = _approx_min_k(s, r, recall_target)
+    rd, rvid = select_min_k(s, r)
     if metric != "ip":
         qf = queries.astype(jnp.float32)
         qn = jnp.sum(qf * qf, axis=-1, keepdims=True)
@@ -128,8 +110,7 @@ def dense_scan_search_fast(recon: jnp.ndarray,   # [N_cap, d] bf16
 
 @functools.partial(
     jax.jit,
-    static_argnames=("recall_num", "k", "metric", "rerank",
-                     "recall_target"))
+    static_argnames=("recall_num", "k", "metric", "rerank"))
 def dense_scan_search(recon: jnp.ndarray,        # [N_cap, d] bf16
                       recon_norms: jnp.ndarray,  # [N_cap] f32
                       queries: jnp.ndarray,      # [B, d] (pre-rotated)
@@ -138,7 +119,7 @@ def dense_scan_search(recon: jnp.ndarray,        # [N_cap, d] bf16
                       queries_raw: jnp.ndarray,  # [B, d] unrotated (rerank)
                       dist_range: jnp.ndarray = None,  # [2] f32 optional
                       *, recall_num: int, k: int, metric: str = "l2",
-                      rerank: bool = True, recall_target: float = 0.95):
+                      rerank: bool = True):
     """→ (dists [B, k] f32, vids [B, k] i32).  vid-order scan: `penalty`
     carries deletes + filters + not-yet-published rows as +BIG.
 
@@ -153,11 +134,11 @@ def dense_scan_search(recon: jnp.ndarray,        # [N_cap, d] bf16
     r = max(recall_num, k)
     if dist_range is None:
         # filtered-but-unranged: fold norms + penalty into ONE [N]
-        # operand behind an optimization barrier (without it XLA inlines
-        # the add back into the scan and re-materializes the [B, N]
-        # distance tensor twice — +45% batch time; see the fast form's
-        # docstring).  The per-query ||q||² constant is added after
-        # selection (rank-neutral, exact).
+        # operand behind an optimization barrier (without it XLA may
+        # inline the add back into the scan and materialize the [B, N]
+        # distance tensor twice; see the fast form's docstring).  The
+        # per-query ||q||² constant is added after selection
+        # (rank-neutral, exact).
         scale = -1.0 if metric == "ip" else -2.0
         cross = jax.lax.dot_general(
             (scale * qf).astype(recon.dtype), recon,
@@ -169,7 +150,7 @@ def dense_scan_search(recon: jnp.ndarray,        # [N_cap, d] bf16
         else:
             bias = jax.lax.optimization_barrier(
                 jnp.minimum(recon_norms + penalty, BIG))
-        rd, rvid = _approx_min_k(cross + bias[None, :], r, recall_target)
+        rd, rvid = select_min_k(cross + bias[None, :], r)
         if metric != "ip":
             rd = rd + jnp.sum(qf * qf, axis=-1, keepdims=True)
     else:
@@ -190,7 +171,7 @@ def dense_scan_search(recon: jnp.ndarray,        # [N_cap, d] bf16
         out = (raw_dist < dist_range[0]) | (raw_dist > dist_range[1])
         dist = jnp.where(out, BIG, dist)
         dist = jnp.minimum(dist, BIG)
-        rd, rvid = _approx_min_k(dist, r, recall_target)
+        rd, rvid = select_min_k(dist, r)
     if not rerank:
         return rd[:, :k], jnp.where(rd[:, :k] >= BIG, -1, rvid[:, :k])
 

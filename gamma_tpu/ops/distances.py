@@ -1,9 +1,15 @@
-"""Pairwise distance primitives — all MXU matmuls.
+"""Pairwise distance primitives — all matmuls.
 
 Reference hot loops these replace: the coarse-quantizer scan
 (gamma_index_ivfpq.cc:549 quantizer->search) and the brute-force flat scan
-(gamma_index_flat.cc:118-300).  On TPU both are (nq x d x N) matmuls with
-the L2 norm-expansion trick; scalar loops would forfeit the MXU.
+(gamma_index_flat.cc:118-300).  Both are (nq x d x N) matmuls with the L2
+norm-expansion trick.
+
+Precision: with the default `precision=None` XLA picks the matmul
+precision, which on an NVIDIA GPU is TF32 for f32 operands (~10-bit
+mantissa).  That is fine where the result only ranks candidates (coarse
+assign, k-means, the bf16 dense cross term); callers whose contract is
+exact distances (the FLAT scan) pass `jax.lax.Precision.HIGHEST`.
 """
 
 from __future__ import annotations
@@ -25,15 +31,17 @@ def l2_norms(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def pairwise_l2(q: jnp.ndarray, x: jnp.ndarray,
-                x_norms: jnp.ndarray | None = None) -> jnp.ndarray:
+                x_norms: jnp.ndarray | None = None,
+                precision=None) -> jnp.ndarray:
     """Squared L2 distances [nq, n] via ||q||^2 - 2 q.x + ||x||^2.
 
-    Accumulates in f32 on the MXU regardless of input dtype.
+    Accumulates in f32 regardless of input dtype.
     """
     qf = q.astype(jnp.float32)
     cross = jax.lax.dot_general(
         q, x,
         dimension_numbers=(((q.ndim - 1,), (x.ndim - 1,)), ((), ())),
+        precision=precision,
         preferred_element_type=jnp.float32,
     )
     if x_norms is None:
@@ -43,11 +51,13 @@ def pairwise_l2(q: jnp.ndarray, x: jnp.ndarray,
     return jnp.maximum(d, 0.0)
 
 
-def pairwise_ip(q: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
+def pairwise_ip(q: jnp.ndarray, x: jnp.ndarray,
+                precision=None) -> jnp.ndarray:
     """Inner products [nq, n] (higher = better)."""
     return jax.lax.dot_general(
         q, x,
         dimension_numbers=(((q.ndim - 1,), (x.ndim - 1,)), ((), ())),
+        precision=precision,
         preferred_element_type=jnp.float32,
     )
 

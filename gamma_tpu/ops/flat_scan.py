@@ -2,9 +2,12 @@
 
 Reference: GammaFLATIndex (index/impl/gamma_index_flat.cc:118-300) —
 OpenMP-parallel L2/IP scan with per-vid filter + score-range checks.
-Here: one MXU matmul per corpus chunk + running top-k merge under a
+Here: one matmul per corpus chunk + running top-k merge under a
 `lax.fori_loop`; the penalty gather replaces the IsValid callback and the
 score-range check becomes a post-filter on the final k.
+
+The FLAT contract is exact distances, so every matmul here runs at
+`Precision.HIGHEST` (full f32; the GPU default would be TF32).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import numpy as np
 
 from gamma_tpu.ops.distances import pairwise_l2, pairwise_ip, BIG
 from gamma_tpu.ops.topk import topk_min, merge_topk
+
+_EXACT = jax.lax.Precision.HIGHEST
 
 
 @functools.partial(jax.jit, static_argnames=("k", "metric", "chunk"))
@@ -54,9 +59,9 @@ def flat_search(vectors: jnp.ndarray, vec_norms: jnp.ndarray,
         vn = jax.lax.dynamic_slice_in_dim(vec_norms, start, chunk, axis=0)
         pen = jax.lax.dynamic_slice_in_dim(penalty, start, chunk, axis=0)
         if metric == "ip":
-            d = -pairwise_ip(queries, v)
+            d = -pairwise_ip(queries, v, precision=_EXACT)
         else:
-            d = pairwise_l2(queries, v, vn)
+            d = pairwise_l2(queries, v, vn, precision=_EXACT)
         if dist_range is not None:
             out = (d < dist_range[0]) | (d > dist_range[1])
             d = jnp.where(out, BIG, d)
@@ -78,9 +83,9 @@ def flat_search(vectors: jnp.ndarray, vec_norms: jnp.ndarray,
 def _stream_chunk(rows, rnorms, pen, start, best_d, best_i, queries,
                   dist_range=None, *, k: int, metric: str):
     if metric == "ip":
-        d = -pairwise_ip(queries, rows)
+        d = -pairwise_ip(queries, rows, precision=_EXACT)
     else:
-        d = pairwise_l2(queries, rows, rnorms)
+        d = pairwise_l2(queries, rows, rnorms, precision=_EXACT)
     if dist_range is not None:
         d = jnp.where((d < dist_range[0]) | (d > dist_range[1]), BIG, d)
     d = jnp.minimum(d + pen[None, :], BIG)

@@ -6,14 +6,14 @@ query, assign to nprobe coarse cells, build ADC LUTs, scan each cell's
 posting list with tombstone + IsValid checks, heap the best recall_num,
 then optionally rerank exactly with raw vectors (compute_dis, .cc:642-697).
 
-TPU-native pipeline (one jit, fixed shapes):
-  1. coarse assign     — (B x d x nlist) MXU matmul + top_k(nprobe)
+Pipeline (one jit, fixed shapes):
+  1. coarse assign     — (B x d x nlist) matmul + top_k(nprobe)
   2. LUT build         — einsum over [B, P, M, dsub] x [M, ksub, dsub]
   3. list gather       — leading-axis gather of whole padded lists
                          (contiguous DMA, unlike per-element gathers)
   4. ADC + fused mask  — take_along_axis over the ksub axis, + penalty
                          gather by docid (deletes + filters in one add)
-  5. top-recall_num    — lax.top_k over the flattened candidate axis
+  5. top-recall_num    — topk.select_min_k over the flattened candidates
   6. exact rerank      — gather raw vectors by vid, exact L2/IP, top-k
 
 Smaller-is-better everywhere; IP scores are negated.
@@ -22,23 +22,16 @@ Smaller-is-better everywhere; IP scores are negated.
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 
 from gamma_tpu.ops import pq as pq_ops
-from gamma_tpu.ops.distances import pairwise_l2, pairwise_ip, l2_norms, BIG
-
-# Widest [B, P*cap] candidate axis the exact select full-sorts; wider
-# goes through the chunked-min prefilter + exact resort (_select_late).
-EXACT_SORT_MAX_WIDTH = 1 << 14
-# chunked-min prefilter target width: the exact phase-2 top-k runs over
-# ~this many chunk winners per query
-CHUNK_SELECT_TARGET = 24576
-from gamma_tpu.ops.topk import topk_min
+from gamma_tpu.ops.distances import pairwise_l2, pairwise_ip, BIG
+from gamma_tpu.ops.topk import select_min_k, topk_min
 from gamma_tpu.realtime.invert_index import IVFState
+from gamma_tpu.utils.devmem import scaled_budget
 
 
 def coarse_assign(queries: jnp.ndarray, centroids: jnp.ndarray,
@@ -76,9 +69,8 @@ def _candidate_mask_penalty(docids_g, lens_g, cap, penalty):
 
 
 def _candidate_mask_validity(docids_g, lens_g, cap, live_n):
-    """Unfiltered-query mask WITHOUT the doc-space penalty gather: a
-    random gather of B x P x cap indices lowers to the TPU scalar core
-    and costs ~5x the whole ADC kernel.  Validity is fully decidable
+    """Unfiltered-query mask WITHOUT the doc-space penalty gather (a
+    random gather of B x P x cap indices).  Validity is fully decidable
     from gathered state: in-length, not tombstoned (docid >= 0), and
     below the engine's live watermark."""
     pos = jnp.arange(cap, dtype=jnp.int32)
@@ -94,10 +86,9 @@ def list_bias(docids, lens, cap, penalty=None, live_n=None):
     This is the posting-layout analog of the dense scan's pre-fused
     bias operand: computed ONCE over nlist*cap slots per call instead
     of per (query, probe, slot), it replaces the two [B, P, cap] i32
-    gathers + the per-candidate penalty gather (B*P*cap random indices
-    on the scalar core) of the _candidate_mask_* path — at batch 512 /
-    nprobe 64 that is ~16x fewer penalty lookups, and the mask rides
-    the scan kernels' existing per-list operand streams for free."""
+    gathers + the per-candidate penalty gather (B*P*cap random indices)
+    of the _candidate_mask_* path — at batch 512 / nprobe 64 that is
+    ~16x fewer penalty lookups."""
     pos = jnp.arange(cap, dtype=jnp.int32)[None, :]
     ok = (pos < lens[:, None]) & (docids >= 0)
     if live_n is not None:
@@ -119,75 +110,17 @@ def _trim_state(state: IVFState, cap_eff: int) -> IVFState:
                           docids=state.docids[:, :cap_eff])
 
 
-def _chunkmin_topk(flat: jnp.ndarray, rn: int) -> Tuple[jnp.ndarray,
-                                                        jnp.ndarray]:
-    """Near-exact wide top-k: g-wide chunk-min prefilter (one VPU pass)
-    + EXACT top-rn over the ~CHUNK_SELECT_TARGET chunk winners.
-
-    This replaces jax.lax.approx_min_k on wide candidate axes
-    (experiments/exp_tenm{,2,3}.py, 10M geometry): ApproxTopK's bin
-    reduction at recall_target=0.99 cost 1.5-2 recall points on
-    clustered lists, while recall_target=0.999 degenerated to full-sort
-    speed (5,010 → 970 QPS at B=512).
-
-    The bins are STRIDED, not contiguous: bin c holds flat elements
-    {c, c+L, c+2L, ...}.  A query's true top-k concentrate inside one
-    or two hot inverted lists (adjacent slots of one probe block in the
-    probe-major flatten), and two slots of the same probed list sit
-    < cap ≤ L apart — a strided bin can never hold both, so same-list
-    near-ties survive phase 1 by construction.  (The contiguous variant
-    measured 0.9711 vs the strided form's exact-matching recall at the
-    10M geometry — exp_tenm3.)  Phase 2 is an exact top-rn over the L
-    bin winners + post-selection recovery of within-bin offsets."""
-    b, width = flat.shape
-    g = 4
-    while width // g > CHUNK_SELECT_TARGET and g < 64:
-        g *= 2
-    wpad = -(-width // g) * g
-    if wpad != width:
-        flat = jnp.pad(flat, ((0, 0), (0, wpad - width)),
-                       constant_values=BIG)
-    ell = wpad // g
-    ch = flat.reshape(b, g, ell)
-    cmin = jnp.min(ch, axis=1)                        # [B, L] one pass
-    k_eff = min(rn, ell)
-    nd, pos = jax.lax.top_k(-cmin, k_eff)
-    # within-bin winner offsets recovered POST-selection: gather the
-    # k_eff selected bins' g candidates ([B, rn, g] — trivial) instead
-    # of a full-width argmin pass
-    sel = jnp.take_along_axis(
-        ch, pos[:, None, :].astype(jnp.int32), axis=2)  # [B, g, rn]
-    j = jnp.argmin(sel, axis=1).astype(jnp.int32)       # [B, rn]
-    ridx = j * ell + pos.astype(jnp.int32)
-    return -nd, ridx
-
-
-def _select_late(dist, list_ids, docids, vids, cap, recall_num,
-                 exact: bool = False):
+def _select_late(dist, list_ids, docids, vids, cap, recall_num):
     """Candidate select with LATE id materialization: top-k runs on the
-    distances alone and doc/vid ids are recovered for only the selected
+    distances alone (topk.select_min_k over the probe-major [B, P*cap]
+    flatten) and doc/vid ids are recovered for only the selected
     positions — replacing the two [B, P, cap] i32 gathers (and their
-    [B, P*cap] flatten + take_along_axis) with [B, R] lookups.  At the
-    10M geometry (cap ~16k) those gathers are ~4 GB of HBM traffic per
-    batch that this removes entirely.
-
-    Width policy (measured on v5e, experiments/exp_bias_ab.py +
-    exp_tenm2.py):
-
-      width <= 2^14   ONE full top-k over [B, P*cap] — exact.
-      wider           chunked-min prefilter + exact top-rn of the chunk
-                      winners (_chunkmin_topk) — near-exact, O(width)
-                      with tiny transients, and strictly better than
-                      the previous approx_min_k pool on clustered lists
-                      (contiguous-bin collisions).  `exact` now only
-                      gates nothing here; both branches share the
-                      chunked path (kept as a parameter for call-site
-                      documentation and future policy splits)."""
+    flatten + take_along_axis) with [B, R] lookups."""
     b, p = list_ids.shape
-    width = p * cap
 
     def _ids_from(ridx):
         # ridx indexes the [P*cap] flatten: probe-major, slot-minor
+        ridx = jnp.maximum(ridx, 0)
         pidx = ridx // cap
         slot = ridx % cap
         lst = jnp.take_along_axis(list_ids, pidx, axis=1)     # [B, R]
@@ -196,45 +129,22 @@ def _select_late(dist, list_ids, docids, vids, cap, recall_num,
         rvid = jnp.take(vids.reshape(-1), lin)
         return rdoc, rvid
 
-    flat = dist.reshape(b, -1)
-    if width > EXACT_SORT_MAX_WIDTH:
-        rd, ridx = _chunkmin_topk(flat, recall_num)
-    else:
-        k_eff = min(recall_num, width)
-        nd, ridx = jax.lax.top_k(-flat, k_eff)
-        rd = -nd
+    rd, ridx = select_min_k(dist.reshape(b, -1), recall_num)
     rdoc, rvid = _ids_from(ridx)
-    if rd.shape[1] < recall_num:
-        padw = recall_num - rd.shape[1]
-        rd = jnp.pad(rd, ((0, 0), (0, padw)), constant_values=BIG)
-        rdoc = jnp.pad(rdoc, ((0, 0), (0, padw)), constant_values=-1)
-        rvid = jnp.pad(rvid, ((0, 0), (0, padw)), constant_values=-1)
     dead = rd >= BIG
     return rd, jnp.where(dead, -1, rdoc), jnp.where(dead, -1, rvid)
 
 
-def _select_candidates(dist, docids_g, vids_g, recall_num,
-                       exact: bool = False):
+def _select_candidates(dist, docids_g, vids_g, recall_num):
+    """Select over a [B, P, cap] scan whose ids were already gathered.
+    Keeps the PROBE-MAJOR flatten: within a list, positions are
+    insertion-ordered (not distance-ordered), so a hot list's true
+    neighbours never share a strided select bin."""
     b = dist.shape[0]
-    width = math.prod(dist.shape[1:])
-    flat = dist.reshape(b, -1)
-    doc_f = docids_g.reshape(b, -1)
-    vid_f = vids_g.reshape(b, -1)
-    if width > 16384 and not exact:
-        # chunked-min prefilter + exact resort (see _chunkmin_topk): the
-        # exact lax.top_k sort over the [B, P*cap] candidate axis costs
-        # ~30x the ADC kernel at the SIFT1M gather geometry, and
-        # approx_min_k's contiguous bins collide clustered true
-        # neighbors.  Keep the PROBE-MAJOR flatten: within a list,
-        # positions are insertion-ordered (not distance-ordered), so a
-        # hot list's true neighbors occupy many distinct chunks.
-        rd, ridx = _chunkmin_topk(flat, recall_num)
-    else:
-        ids = jnp.broadcast_to(
-            jnp.arange(width, dtype=jnp.int32)[None, :], flat.shape)
-        rd, ridx = topk_min(flat, ids, recall_num)
-    rdoc = jnp.take_along_axis(doc_f, ridx, axis=1)
-    rvid = jnp.take_along_axis(vid_f, ridx, axis=1)
+    rd, ridx = select_min_k(dist.reshape(b, -1), recall_num)
+    ridx = jnp.maximum(ridx, 0)
+    rdoc = jnp.take_along_axis(docids_g.reshape(b, -1), ridx, axis=1)
+    rvid = jnp.take_along_axis(vids_g.reshape(b, -1), ridx, axis=1)
     # re-poison: masked candidates keep BIG dist and -1 ids
     dead = rd >= BIG
     return rd, jnp.where(dead, -1, rdoc), jnp.where(dead, -1, rvid)
@@ -278,7 +188,7 @@ def rerank_rows(queries, rd, rdoc, rvid, rows, dist_range=None,
 @functools.partial(
     jax.jit,
     static_argnames=("nprobe", "recall_num", "k", "metric", "rerank",
-                     "scan_impl", "cap_eff"))
+                     "cap_eff"))
 def ivfpq_search(state: IVFState,
                  centroids: jnp.ndarray,      # [nlist, d] f32
                  cent_norms: jnp.ndarray,     # [nlist] f32
@@ -291,78 +201,34 @@ def ivfpq_search(state: IVFState,
                  live_n: Optional[jnp.ndarray] = None,       # scalar i32
                  *, nprobe: int, recall_num: int, k: int,
                  metric: str = "l2", rerank: bool = True,
-                 scan_impl: str = "xla", cap_eff: int = 0):
+                 cap_eff: int = 0):
     """→ (dists [B, k] f32, docids [B, k] i32, vids [B, k] i32).
     Masked/empty slots return dist >= BIG and ids = -1.
-
-    scan_impl="pallas" runs the ADC accumulation in the Pallas kernel
-    (ops/pallas_adc.py) — measured ~8x faster than XLA's gather lowering
-    on v5e at the SIFT1M geometry; "xla" is the portable path (and fine
-    on CPU).
 
     cap_eff (static) trims the scan to the live list-length watermark
     ladder: the posting state presizes to ~3x fill to avoid regrowth
     compiles, so scanning the full cap pays 2-3x dead slots through the
-    kernel, the bias, and the select (the in-jit slice copy is ~0.1 ms
-    of HBM traffic at the 1M geometry — the scan saving is milliseconds)."""
+    scan, the bias, and the select."""
     state = _trim_state(state, cap_eff)
     cd, list_ids = coarse_assign(queries, centroids, cent_norms,
                                  nprobe, metric)
     bias_l = list_bias(state.docids, state.lens, state.cap,
                        penalty=penalty, live_n=live_n)    # [nlist, cap]
-    # with a score range the mask must stay OUT of the scanned value
-    # (the range tests the raw distance); otherwise it rides the scan
-    # kernel's per-list operand stream for free
-    fuse_bias = dist_range is None
-
-    m = state.codes.shape[-1]
-    ksub = codebooks.codebooks.shape[1]
-    if scan_impl == "pallas" and (m * ksub) % 128 == 0:
-        # grouped MXU kernel (ops/pallas_gadc.py): queries probing the
-        # same list share one in-VMEM code expansion, the per-(query,
-        # list) residual LUT is built in-kernel, and the accumulation is
-        # a matmul — nothing per-(query, probe) materializes in HBM.
-        # Full distance = coarse + adc for both metrics.
-        from gamma_tpu.ops.pallas_gadc import grouped_adc
-        adc = grouped_adc(state.codes, state.lens, list_ids, queries,
-                          centroids, codebooks, metric=metric,
-                          bias=bias_l if fuse_bias else None)
-        raw_dist = adc + cd[..., None]
+    if metric == "ip":
+        # score = q.c + q.decode(residual code); dist = -score
+        lut = -pq_ops.ip_lut(codebooks, queries)          # [B, M, ksub]
+        lut = jnp.broadcast_to(lut[:, None], (lut.shape[0], nprobe) +
+                               lut.shape[1:])
+        base = cd[..., None]                              # -q.c
     else:
-        if metric == "ip":
-            # score = q.c + q.decode(residual code); dist = -score
-            lut = -pq_ops.ip_lut(codebooks, queries)      # [B, M, ksub]
-            lut = jnp.broadcast_to(lut[:, None], (lut.shape[0], nprobe) +
-                                   lut.shape[1:])
-            base = cd[..., None]                          # -q.c
-        else:
-            probed_cents = jnp.take(centroids, list_ids, axis=0)  # [B,P,d]
-            residual = (queries.astype(jnp.float32)[:, None, :]
-                        - probed_cents)
-            lut = pq_ops.l2_lut(codebooks, residual)      # [B, P, M, ksub]
-            base = 0.0
-        if scan_impl == "pallas":
-            # per-(query, probe) VPU kernel — only reached when M·ksub is
-            # not lane-aligned for the grouped kernel
-            from gamma_tpu.ops.pallas_adc import adc_scan_pallas
-            adc = adc_scan_pallas(state.codes, list_ids, lut)
-        else:
-            codes_g = jnp.take(state.codes, list_ids, axis=0)
-            adc = pq_ops.adc_scan(lut, codes_g)           # [B, P, cap]
-        raw_dist = adc + base
-        if fuse_bias:
-            raw_dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-    if fuse_bias:
-        dist = raw_dist
-    else:
-        dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-        # fused score-range (reference: IsSimilarScoreValid inside the
-        # scanner, gamma_index_ivfpq.h:574-601): the recall heap fills
-        # with in-range candidates only
-        dist = jnp.where((raw_dist < dist_range[0])
-                         | (raw_dist > dist_range[1]), BIG, dist)
-    dist = jnp.minimum(dist, BIG)
-
+        probed_cents = jnp.take(centroids, list_ids, axis=0)  # [B, P, d]
+        residual = queries.astype(jnp.float32)[:, None, :] - probed_cents
+        lut = pq_ops.l2_lut(codebooks, residual)          # [B, P, M, ksub]
+        base = 0.0
+    codes_g = jnp.take(state.codes, list_ids, axis=0)
+    raw_dist = pq_ops.adc_scan(lut, codes_g) + base       # [B, P, cap]
+    dist = _masked_dist(raw_dist, jnp.take(bias_l, list_ids, axis=0),
+                        dist_range)
     rd, rdoc, rvid = _select_late(dist, list_ids, state.docids,
                                   state.vids, state.cap, recall_num)
     if not rerank:
@@ -374,6 +240,19 @@ def ivfpq_search(state: IVFState,
                    dist_range)
 
 
+def _masked_dist(raw_dist, bias, dist_range):
+    """Fold the per-slot mask bias into the scanned distances; with a
+    score range, out-of-range candidates are masked too (reference:
+    IsSimilarScoreValid inside the scanner, gamma_index_ivfpq.h:574-601
+    — the recall heap fills with in-range candidates only).  The range
+    tests the raw, unmasked distance."""
+    dist = raw_dist + bias
+    if dist_range is not None:
+        dist = jnp.where((raw_dist < dist_range[0])
+                         | (raw_dist > dist_range[1]), BIG, dist)
+    return jnp.minimum(dist, BIG)
+
+
 def topk_like(rd, rdoc, rvid, k):
     if k == rd.shape[1]:
         return rd, rdoc, rvid
@@ -383,7 +262,7 @@ def topk_like(rd, rdoc, rvid, k):
 @functools.partial(
     jax.jit,
     static_argnames=("nprobe", "recall_num", "k", "metric", "rerank",
-                     "scan_impl", "by_residual", "cap_eff"))
+                     "by_residual", "cap_eff"))
 def ivfpqfs_search(state: IVFState,           # codes packed [nlist,cap,M/2]
                    centroids: jnp.ndarray,
                    cent_norms: jnp.ndarray,
@@ -396,73 +275,39 @@ def ivfpqfs_search(state: IVFState,           # codes packed [nlist,cap,M/2]
                    live_n: Optional[jnp.ndarray] = None,     # scalar i32
                    *, nprobe: int, recall_num: int, k: int,
                    metric: str = "l2", rerank: bool = True,
-                   scan_impl: str = "xla", by_residual: bool = True,
-                   cap_eff: int = 0):
+                   by_residual: bool = True, cap_eff: int = 0):
     """FastScan search: 4-bit PQ with packed codes.
 
     by_residual=False is the reference's layout (4-bit PQ of the RAW
     rotated vector, gamma_index_ivfpqfs.cc:146 — the AVX2 shuffle wants
     one LUT per query).  by_residual=True (our default) quantizes the
-    residual like 8-bit IVFPQ: the grouped kernel builds the per-(query,
-    probed-list) LUT in-kernel from the residuals, so the reference's
-    reason to drop the residual does not apply on TPU and the recall
-    penalty of by_residual=false at nlist≈2k goes away.  Same fused
-    mask / score range / recall heap / exact-rerank contract as
-    ivfpq_search (incl. cap_eff watermark trimming)."""
+    residual like 8-bit IVFPQ, avoiding the recall penalty of
+    by_residual=false at nlist≈2k.  Same fused mask / score range /
+    recall heap / exact-rerank contract as ivfpq_search (incl. cap_eff
+    watermark trimming)."""
     state = _trim_state(state, cap_eff)
     cd, list_ids = coarse_assign(queries, centroids, cent_norms,
                                  nprobe, metric)
     bias_l = list_bias(state.docids, state.lens, state.cap,
                        penalty=penalty, live_n=live_n)    # [nlist, cap]
-    fuse_bias = dist_range is None
-
-    if scan_impl == "pallas":
-        from gamma_tpu.ops.pallas_gadc import grouped_adc
-        adc = grouped_adc(state.codes, state.lens, list_ids, queries,
-                          centroids, codebooks, metric=metric,
-                          packed=True, residual=by_residual,
-                          bias=bias_l if fuse_bias else None)
-        if metric == "ip":
-            raw_dist = adc + (cd[..., None] if by_residual else 0.0)
-        elif by_residual:
-            raw_dist = adc + cd[..., None]
-        else:
-            qn = l2_norms(queries.astype(jnp.float32))
-            raw_dist = adc + qn[:, None, None]
+    codes_g = pq_ops.unpack_nibbles(jnp.take(state.codes, list_ids, axis=0))
+    if metric == "ip":
+        lut = -pq_ops.ip_lut(codebooks, queries)          # [B, M, 16]
+        raw_dist = pq_ops.adc_scan(lut[:, None], codes_g)
+        if by_residual:
+            raw_dist = raw_dist + cd[..., None]           # -q·c term
+    elif by_residual:
+        probed = jnp.take(centroids, list_ids, axis=0)    # [B, P, d]
+        residual = queries.astype(jnp.float32)[:, None, :] - probed
+        lut = pq_ops.l2_lut(codebooks, residual)          # [B, P, M, 16]
+        raw_dist = pq_ops.adc_scan(lut, codes_g)
     else:
-        from gamma_tpu.ops.pallas_adc import unpack_nibbles
-        codes_g = unpack_nibbles(jnp.take(state.codes, list_ids, axis=0))
-        if metric == "ip":
-            lut = -pq_ops.ip_lut(codebooks, queries)      # [B, M, 16]
-            raw_dist = pq_ops.adc_scan(lut[:, None], codes_g)
-            if by_residual:
-                raw_dist = raw_dist + cd[..., None]       # -q·c term
-        elif by_residual:
-            probed = jnp.take(centroids, list_ids, axis=0)     # [B, P, d]
-            residual = queries.astype(jnp.float32)[:, None, :] - probed
-            lut = pq_ops.l2_lut(codebooks, residual)      # [B, P, M, 16]
-            raw_dist = pq_ops.adc_scan(lut, codes_g)
-        else:
-            lut = pq_ops.l2_lut(codebooks, queries)       # [B, M, 16]
-            raw_dist = pq_ops.adc_scan(lut[:, None], codes_g)
-        if fuse_bias:
-            raw_dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-    if fuse_bias:
-        dist = raw_dist
-    else:
-        dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-        dist = jnp.where((raw_dist < dist_range[0])
-                         | (raw_dist > dist_range[1]), BIG, dist)
-    dist = jnp.minimum(dist, BIG)
-
-    # exact=True candidate select (full sort <= EXACT_SORT_MAX_WIDTH,
-    # near-exact pooled select beyond — see _select_late): the 4-bit
-    # codes already cost ~1pt of recall; stacking ApproxTopK's direct
-    # bin-collision loss on top (and its non-nested candidate sets
-    # across recall_num) held recall@10 under the 0.99 reference bar.
+        lut = pq_ops.l2_lut(codebooks, queries)           # [B, M, 16]
+        raw_dist = pq_ops.adc_scan(lut[:, None], codes_g)
+    dist = _masked_dist(raw_dist, jnp.take(bias_l, list_ids, axis=0),
+                        dist_range)
     rd, rdoc, rvid = _select_late(dist, list_ids, state.docids,
-                                  state.vids, state.cap, recall_num,
-                                  exact=True)
+                                  state.vids, state.cap, recall_num)
     if not rerank:
         return topk_like(rd, rdoc, rvid, k)
     qr = queries if queries_raw is None else queries_raw
@@ -472,17 +317,26 @@ def ivfpqfs_search(state: IVFState,           # codes packed [nlist,cap,M/2]
 
 def sq_raw_dist_xla(sq_codes, sq_norms, sq_scale, sq_off, centroids,
                     list_ids, queries, *, metric: str = "l2"):
-    """Portable XLA twin of ops/pallas_gsq.grouped_sq_scan (CPU tests /
-    small shapes / on-TPU agreement checks): gather + dequantize +
-    einsum — materializes [B, P, cap, d], fine off-TPU."""
+    """Residual-SQ8 scan distances [B, P, cap] to the dequantized points
+    (ops/sq.py) of the probed lists.  The dequantization is folded into
+    the query side,
+
+        q.x = (q*scale).code + q.off + q.c_list,
+
+    so the per-candidate work is one multiply-add reduction over the
+    gathered u8 codes in f32 (no [B, P, cap, d] float copy of the codes
+    is formed)."""
     qf = queries.astype(jnp.float32)
-    cg = jnp.take(sq_codes, list_ids, axis=0).astype(jnp.float32)
     d = qf.shape[1]
-    deq = (sq_off[None, None, None, :]
-           + sq_scale[None, None, None, :] * cg[..., :d])
-    x = deq + jnp.take(centroids, list_ids, axis=0)[:, :, None, :]
-    qx = jnp.einsum("bd,bpcd->bpc", qf, x,
-                    precision=jax.lax.Precision.HIGHEST)
+    hp = jax.lax.Precision.HIGHEST
+    cg = jnp.take(sq_codes, list_ids, axis=0)[..., :d]   # [B, P, cap, d]
+    qs = qf * sq_scale[None, :]
+    qx = jnp.sum(qs[:, None, None, :] * cg.astype(jnp.float32), axis=-1)
+    q_off = jnp.dot(qf, sq_off, precision=hp)             # [B]
+    q_cent = jnp.einsum("bd,bpd->bp", qf,
+                        jnp.take(centroids, list_ids, axis=0),
+                        precision=hp)                     # [B, P]
+    qx = qx + (q_off[:, None] + q_cent)[..., None]
     if metric == "ip":
         return -qx
     nrm_g = jnp.take(sq_norms, list_ids, axis=0)
@@ -492,8 +346,8 @@ def sq_raw_dist_xla(sq_codes, sq_norms, sq_scale, sq_off, centroids,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("nprobe", "k", "metric", "scan_impl", "cap_eff",
-                     "recall_num", "rerank"))
+    static_argnames=("nprobe", "k", "metric", "cap_eff", "recall_num",
+                     "rerank"))
 def ivfsq_search(state: IVFState,             # posting ids/lens (codes unused)
                  sq_codes: jnp.ndarray,       # [nlist, cap, d_pad] u8
                  sq_norms: jnp.ndarray,       # [nlist, cap] f32
@@ -508,13 +362,12 @@ def ivfsq_search(state: IVFState,             # posting ids/lens (codes unused)
                  raw_vectors: Optional[jnp.ndarray] = None,  # [V, d]
                  queries_raw: Optional[jnp.ndarray] = None,
                  *, nprobe: int, k: int, metric: str = "l2",
-                 scan_impl: str = "xla", cap_eff: int = 0,
-                 recall_num: int = 0, rerank: bool = False):
-    """Residual-SQ8 capacity search (ops/pallas_gsq.py): scan distances
-    are EXACT distances to the int8-dequantized points, so top-k is
+                 cap_eff: int = 0, recall_num: int = 0,
+                 rerank: bool = False):
+    """Residual-SQ8 capacity search (ops/sq.py): scan distances are
+    EXACT distances to the int8-dequantized points, so top-k is
     selected directly — no recall_num heap, no exact-rerank row gather
-    (the reference's compute_dis re-read, gamma_index_ivfpq.cc:642-697,
-    is the TPU capacity path's wall: ~0.9 us per random row).
+    (the reference's compute_dis re-read, gamma_index_ivfpq.cc:642-697).
 
     cap_eff (static) slices the scan to the live capacity watermark:
     lists never exceed max(lens), so slots beyond it are dead padding
@@ -523,7 +376,7 @@ def ivfsq_search(state: IVFState,             # posting ids/lens (codes unused)
     # scan width: the ladder watermark, never wider than either the
     # posting cap or the sidecar's own width (the sidecar is allocated
     # at ladder(max_len), usually NARROWER than the 3x-slack posting
-    # cap; legacy dumps may still carry a full-cap sidecar).  Slots past
+    # cap; older dumps may still carry a full-cap sidecar).  Slots past
     # max(lens) are dead, so trimming is exact.
     cap = state.cap
     sq_cap = sq_codes.shape[1]
@@ -539,89 +392,20 @@ def ivfsq_search(state: IVFState,             # posting ids/lens (codes unused)
                                  nprobe, metric)
     bias_l = list_bias(state.docids, state.lens, cap,
                        penalty=penalty, live_n=live_n)    # [nlist, cap]
-    fuse_bias = dist_range is None
-
-    # wide-cap fast path: the kernel folds the select's phase 1 (strided
-    # per-bin min/argmin) so the grouped output and ungroup gather
-    # shrink fold-x — at the 10M geometry (cap_eff ~12k) the raw
-    # [G, Q, cap] buffer + its regather were the HBM wall
-    # (experiments/exp_tenm4.py).  Needs the fused mask (no dist_range).
-    fold = 8 if (scan_impl == "pallas" and fuse_bias
-                 and cap >= 4096) else 1
-    if fold > 1:
-        from gamma_tpu.ops.pallas_gsq import (fold_geometry,
-                                              grouped_sq_scan)
-        tile_eff, lb = fold_geometry(cap, 4096, fold)
-        dist_f, args_f = grouped_sq_scan(
-            sq_codes, sq_norms, state.lens, list_ids, queries,
-            sq_scale, sq_off, centroids=centroids, metric=metric,
-            bias=bias_l, fold=fold, tile=tile_eff)
-        dist_f = jnp.minimum(dist_f, BIG)     # [B, P, cap//fold]
-        capf = cap // fold
-        b = queries.shape[0]
-        flat = dist_f.reshape(b, -1)
-        rn = max(recall_num, k) if rerank else k
-        if flat.shape[1] > EXACT_SORT_MAX_WIDTH:
-            rd, ridx = _chunkmin_topk(flat, rn)
-        else:
-            nd, ridx = jax.lax.top_k(-flat, min(rn, flat.shape[1]))
-            rd = -nd
-        pidx = ridx // capf
-        fidx = ridx % capf
-        arg_sel = jnp.take_along_axis(args_f.reshape(b, -1), ridx,
-                                      axis=1)
-        slot = (fidx // lb) * tile_eff + arg_sel * lb + (fidx % lb)
-        lst = jnp.take_along_axis(list_ids, pidx, axis=1)
-        lin = lst * cap + slot
-        rdoc = jnp.take(state.docids.reshape(-1), lin)
-        rvid = jnp.take(state.vids.reshape(-1), lin)
-        dead = rd >= BIG
-        rdoc = jnp.where(dead, -1, rdoc)
-        rvid = jnp.where(dead, -1, rvid)
-        if not rerank:
-            return topk_like(rd, rdoc, rvid, k)
-        qr = queries if queries_raw is None else queries_raw
-        return _rerank(qr, rd, rdoc, rvid, raw_vectors, penalty, k,
-                       metric, dist_range)
-
-    if scan_impl == "pallas":
-        from gamma_tpu.ops.pallas_gsq import grouped_sq_scan
-        raw_dist = grouped_sq_scan(sq_codes, sq_norms, state.lens,
-                                   list_ids, queries, sq_scale, sq_off,
-                                   centroids=centroids, metric=metric,
-                                   bias=bias_l if fuse_bias else None)
-    else:
-        raw_dist = sq_raw_dist_xla(sq_codes, sq_norms, sq_scale, sq_off,
-                                   centroids, list_ids, queries,
-                                   metric=metric)
-        if fuse_bias:
-            raw_dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-    if fuse_bias:
-        dist = raw_dist
-    else:
-        dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-        dist = jnp.where((raw_dist < dist_range[0])
-                         | (raw_dist > dist_range[1]), BIG, dist)
-    dist = jnp.minimum(dist, BIG)
-
-    # exact=True select: full sort up to EXACT_SORT_MAX_WIDTH (2^17)
-    # candidates; beyond that, _select_late switches to a near-exact
-    # approx_min_k candidate POOL + exact resort.  Either way
-    # ApproxTopK's direct bin-collision loss (clustered true neighbors
-    # sharing a hot list alias into the same contiguous bins; measured
-    # -2pts) is not paid at top-k itself.
+    raw_dist = sq_raw_dist_xla(sq_codes, sq_norms, sq_scale, sq_off,
+                               centroids, list_ids, queries, metric=metric)
+    dist = _masked_dist(raw_dist, jnp.take(bias_l, list_ids, axis=0),
+                        dist_range)
     if not rerank:
         return _select_late(dist, list_ids, state.docids, state.vids,
-                            cap, k, exact=True)
-    # optional exact rerank (the 10M capacity tier's operating point):
-    # SQ8 distances are exact to the QUANTIZED point, which misranks
-    # ~0.3 pts of near-ties at 10M density (exp_tenm.py: exact-select
-    # ceiling 0.9891 vs the dense tier's 0.9918).  Selecting a top-R
-    # candidate set and reranking against the bf16 store mirror
-    # recovers the dense tier's ordering at ~R rows of gather per query.
+                            cap, k)
+    # optional exact rerank: SQ8 distances are exact to the QUANTIZED
+    # point, which misranks near-ties at 10M density.  Selecting a top-R
+    # candidate set and reranking against the store mirror recovers the
+    # dense tier's ordering at ~R rows of gather per query.
     rn = max(recall_num or 8 * k, k)
     rd, rdoc, rvid = _select_late(dist, list_ids, state.docids,
-                                  state.vids, cap, rn, exact=True)
+                                  state.vids, cap, rn)
     qr = queries if queries_raw is None else queries_raw
     return _rerank(qr, rd, rdoc, rvid, raw_vectors, penalty, k, metric,
                    dist_range)
@@ -632,22 +416,23 @@ def ivfsq_search(state: IVFState,             # posting ids/lens (codes unused)
 # (reference: gamma_index_ivfflat.{h,cc} — full vectors as "codes")
 # ---------------------------------------------------------------------
 
-# Payload-gather transient budget for the exact-scan models: the
-# [Bc, P, cap, W] u8 gather materializes in HBM before the distance
-# fusion; one chip has ~16 GB, and at batch 1024 x nprobe 64 x cap 781
-# x 256 B the full-batch gather alone is 13 GB (it OOM'd the r5 bench).
+# Payload-gather transient budget for the exact-scan models, written for
+# a 16 GiB device (utils/devmem.scaled_budget): the [Bc, P, cap, W] u8
+# gather materializes before the distance fusion, and at batch 1024 x
+# nprobe 64 x cap 781 x 256 B the full-batch gather alone is 13 GB.
 FLAT_GATHER_BYTES = 1 << 30
 
 
 def _batched_exact_scan(queries, chunk_fn, per_query_bytes):
-    """Run chunk_fn over query chunks sized to FLAT_GATHER_BYTES.
+    """Run chunk_fn over query chunks sized to the gather budget.
     chunk_fn: [Bc, d] -> (rd [Bc, k], rdoc, rvid).  The chunk axis is a
     lax.map (sequential) so only one chunk's gather transient is live at
     a time; for small geometries this degenerates to one direct call."""
     b = queries.shape[0]
-    bc = max(1, min(b, FLAT_GATHER_BYTES // max(per_query_bytes, 1)))
+    budget = scaled_budget(FLAT_GATHER_BYTES)
+    bc = max(1, min(b, budget // max(per_query_bytes, 1)))
     if bc >= 8:
-        bc = (bc // 8) * 8                      # sublane-aligned chunks
+        bc = (bc // 8) * 8
     if bc >= b:
         return chunk_fn(queries)
     nchunk = -(-b // bc)
@@ -659,27 +444,12 @@ def _batched_exact_scan(queries, chunk_fn, per_query_bytes):
 
 
 @functools.partial(
-    jax.jit, static_argnames=("nprobe", "k", "metric", "d", "scan_impl",
-                              "cap_eff"))
+    jax.jit, static_argnames=("nprobe", "k", "metric", "d", "cap_eff"))
 def ivfflat_search(state: IVFState, centroids, cent_norms, queries,
                    penalty, dist_range=None, *, nprobe: int, k: int,
-                   d: int, metric: str = "l2", scan_impl: str = "xla",
-                   cap_eff: int = 0):
+                   d: int, metric: str = "l2", cap_eff: int = 0):
     """Exact-distance IVF scan: posting payload = bf16 vector bytes.
-
-    scan_impl="pallas" routes through the grouped row kernel
-    (ops/pallas_gsq.py with raw bf16 rows instead of SQ8 codes):
-    queries probing the same list share one row-tile DMA, so each
-    probed list's payload is read ONCE per batch instead of once per
-    query — the per-query gather path reads B*P*cap*2d bytes per batch
-    (13 GB at the 200k bench geometry) where the grouped kernel reads
-    ~nlist*cap*2d (one corpus pass, 50 MB).  Distances stay exact to
-    the stored bf16 rows (bf16 matmul, f32 accumulate — the dense
-    mirror's precision class)."""
-    if scan_impl == "pallas":
-        return _ivfflat_grouped(state, centroids, cent_norms, queries,
-                                penalty, dist_range, nprobe=nprobe, k=k,
-                                d=d, metric=metric, cap_eff=cap_eff)
+    Distances are exact to the stored bf16 rows (f32 arithmetic)."""
     state = _trim_state(state, cap_eff)
     cap, w = state.codes.shape[1], state.codes.shape[2]
 
@@ -693,60 +463,18 @@ def ivfflat_search(state: IVFState, centroids, cent_norms, queries,
         ).reshape(bcq, nprobe, cap, d).astype(jnp.float32)
         qf = qc.astype(jnp.float32)
         if metric == "ip":
-            raw_dist = -jnp.einsum("bd,bpcd->bpc", qf, vecs,
-                                   preferred_element_type=jnp.float32)
+            raw_dist = -jnp.sum(qf[:, None, None, :] * vecs, axis=-1)
         else:
             diff = qf[:, None, None, :] - vecs
             raw_dist = jnp.sum(diff * diff, axis=-1)
-        dist = raw_dist + _candidate_mask_penalty(docids_g, lens_g, cap,
-                                                  penalty)
-        if dist_range is not None:
-            dist = jnp.where((raw_dist < dist_range[0])
-                             | (raw_dist > dist_range[1]), BIG, dist)
-        dist = jnp.minimum(dist, BIG)
+        dist = _masked_dist(
+            raw_dist, _candidate_mask_penalty(docids_g, lens_g, cap,
+                                              penalty), dist_range)
         return _select_candidates(dist, docids_g, vids_g, k)
 
     # gather transient per query: codes bytes + the f32 vecs expansion
     per_q = nprobe * cap * (w + 4 * d)
     return _batched_exact_scan(queries, _chunk, per_q)
-
-
-def _ivfflat_grouped(state: IVFState, centroids, cent_norms, queries,
-                     penalty, dist_range, *, nprobe: int, k: int, d: int,
-                     metric: str, cap_eff: int):
-    """Grouped-MXU IVFFlat scan: bitcast the byte payload back to bf16
-    rows ONCE per call (a corpus-sized pass that amortizes over the
-    batch) and run the pallas_gsq row kernel with scale/off=None.
-    Row norms are reduced from the same bf16 rows, so L2 distances are
-    exact to the stored payload (the XLA path's contract)."""
-    state = _trim_state(state, cap_eff)
-    nlist, cap = state.codes.shape[0], state.codes.shape[1]
-    rows = jax.lax.bitcast_convert_type(
-        state.codes.reshape(nlist, cap, d, 2), jnp.bfloat16
-    ).reshape(nlist, cap, d)
-    if d % 128:
-        rows = jnp.pad(rows, ((0, 0), (0, 0), (0, 128 - d % 128)))
-    norms = (jnp.sum(rows.astype(jnp.float32) ** 2, axis=-1)
-             if metric != "ip" else
-             jnp.zeros((nlist, cap), jnp.float32))
-
-    cd, list_ids = coarse_assign(queries, centroids, cent_norms,
-                                 nprobe, metric)
-    bias_l = list_bias(state.docids, state.lens, cap, penalty=penalty)
-    fuse_bias = dist_range is None
-    from gamma_tpu.ops.pallas_gsq import grouped_sq_scan
-    raw_dist = grouped_sq_scan(rows, norms, state.lens, list_ids,
-                               queries, None, None, metric=metric,
-                               bias=bias_l if fuse_bias else None)
-    if fuse_bias:
-        dist = raw_dist
-    else:
-        dist = raw_dist + jnp.take(bias_l, list_ids, axis=0)
-        dist = jnp.where((raw_dist < dist_range[0])
-                         | (raw_dist > dist_range[1]), BIG, dist)
-    dist = jnp.minimum(dist, BIG)
-    return _select_late(dist, list_ids, state.docids, state.vids,
-                        cap, k, exact=True)
 
 
 # ---------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 The reference delegates coarse-centroid + PQ-codebook training to
 faiss::IndexIVFPQ::train (gamma_index_ivfpq.cc:346, k-means on CPU/BLAS).
-Here we own it: each Lloyd iteration is two MXU matmuls — the assignment
+Here we own it: each Lloyd iteration is two matmuls — the assignment
 (n x d x k distance matrix, chunked over n to bound memory) and the
 centroid update (one-hot^T @ x).  The whole training loop runs under one
 jit with `lax.fori_loop`, so XLA pipelines chunk DMA with compute.
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from gamma_tpu.ops.distances import pairwise_l2, l2_norms
+from gamma_tpu.utils.devmem import scaled_budget
 
 
 def _pad_rows(x: jnp.ndarray, multiple: int) -> Tuple[jnp.ndarray, int]:
@@ -45,7 +46,7 @@ def _assign_chunked(x: jnp.ndarray, cents: jnp.ndarray, chunk: int) -> jnp.ndarr
 
 
 def _update_centroids(x, assign, k, old_cents):
-    """sums via one-hot matmul (MXU); empty clusters keep their centroid."""
+    """sums via one-hot matmul; empty clusters keep their centroid."""
     onehot = jax.nn.one_hot(assign, k, dtype=jnp.float32)       # [n, k]
     sums = jax.lax.dot_general(
         onehot, x.astype(jnp.float32),
@@ -96,11 +97,11 @@ def _rebalance(cents, counts):
     return cents
 
 
-# Full [n, k] distance matrix budget for the FLAT assignment: under it
-# the whole Lloyd loop is two plain matmuls per iteration — the chunked
-# lax.map formulation compiled 201 s cold on v5e at the SIFT1M train
-# geometry vs 14 s flat (experiments/exp_kmeans_compile.py); warm step
-# time is identical (0.14 s).  Train latency is compile-dominated.
+# Full [n, k] distance matrix budget for the FLAT assignment, written
+# for a 16 GiB device (utils/devmem.scaled_budget): under it the whole
+# Lloyd loop is two plain matmuls per iteration, which compiles far
+# faster than the chunked lax.map formulation (train latency at the
+# SIFT1M train geometry is compile-dominated).
 FLAT_DIST_BYTES = 5 << 30
 
 
@@ -121,7 +122,7 @@ def kmeans_fit(x: jnp.ndarray, init: jnp.ndarray, *, k: int,
     cost) near the mean instead of several multiples of it.
     """
     xf = x.astype(jnp.float32)
-    flat = x.shape[0] * k * 4 <= FLAT_DIST_BYTES
+    flat = x.shape[0] * k * 4 <= scaled_budget(FLAT_DIST_BYTES)
     xp, n_true = _pad_rows(xf, 8 if flat else chunk)
     n_pad = xp.shape[0]
     row_valid = (jnp.arange(n_pad) < n_true)

@@ -5,7 +5,7 @@ range-filter bitmap test) into the innermost ADC loop
 (gamma_index_ivfpq.h:574-601) and builds those bitmaps with a B-tree range
 index (table/field_range_index.cc:1015-1200).
 
-TPU-native re-derivation: validity is a single f32 array `penalty[N_cap]`
+Re-derivation: validity is a single f32 array `penalty[N_cap]`
 where 0.0 = valid and BIG = masked.  Scans gather `penalty[docid]` and add
 it to the distance, so filtered search costs one extra gather — no
 candidate lists ever reach the host.  The array is produced on device from:

@@ -1,7 +1,7 @@
 """Product quantization: train / encode / decode / LUT build.
 
 Reference: faiss::ProductQuantizer as used by GammaIVFPQIndex
-(gamma_index_ivfpq.cc:424-512 encode, ivfpq.h:86-349 query LUTs).  TPU-first
+(gamma_index_ivfpq.cc:424-512 encode, ivfpq.h:86-349 query LUTs).  Device
 re-derivation:
   * training = ONE vmapped k-means over all M subspaces at once
     (kmeans_batched_fit), not M sequential CPU k-means;
@@ -143,6 +143,14 @@ def ip_lut(pq: PQCodebooks, queries: jnp.ndarray) -> jnp.ndarray:
     sub = split_subspaces(queries.astype(jnp.float32), pq.M)
     return jnp.einsum("...md,mkd->...mk", sub, pq.codebooks,
                       preferred_element_type=jnp.float32)
+
+
+def unpack_nibbles(packed: jnp.ndarray) -> jnp.ndarray:
+    """[..., W] u8 packed → [..., 2W] u8 codes in 0..15 (lo nibble first)."""
+    lo = packed & 0xF
+    hi = (packed >> 4) & 0xF
+    return jnp.stack([lo, hi], axis=-1).reshape(
+        packed.shape[:-1] + (2 * packed.shape[-1],))
 
 
 def adc_scan(lut: jnp.ndarray, codes: jnp.ndarray) -> jnp.ndarray:

@@ -1,14 +1,15 @@
 """Multi-chip sharding of inverted lists over a jax mesh.
 
-This is the TPU-native replacement for the reference's multi-GPU path
+This replaces the reference's multi-GPU path
 (index/impl/gpu/gamma_index_ivfpq_gpu.cc:588-601 — faiss::IndexShards over
 devices with a host-side merge) and, above it, Vearch's partition-server
-sharding (benchs/README.md cluster section).  Instead of NCCL + host
-merges, the inverted lists, coarse centroids, and raw vectors are sharded
-over a mesh axis ("l") and the merge rides ICI collectives inside one jit:
+sharding (benchs/README.md cluster section).  Instead of host merges, the
+inverted lists, coarse centroids, and raw vectors are sharded over a mesh
+axis ("l") and the merge rides collectives inside one jit (XLA hands them
+to NCCL on GPUs):
 
   1. local coarse assign        — each shard scores queries against its own
-                                  centroid shard (one MXU matmul)
+                                  centroid shard (one matmul)
   2. global probe selection     — all_gather of per-shard top-nprobe coarse
                                   distances (tiny: [B, S*nprobe] f32) → the
                                   global nprobe-th distance is the selection
@@ -16,7 +17,7 @@ over a mesh axis ("l") and the merge rides ICI collectives inside one jit:
                                   lists that pass it (≤ local_probe each)
   3. local ADC scan + top-R     — identical math to the single-chip kernel,
                                   over [B, local_probe, cap] candidates
-  4. ICI merge                  — all_gather of (dist, docid, vid) triples
+  4. collective merge           — all_gather of (dist, docid, vid) triples
                                   [B, S*R] → top-R (replaces the reference's
                                   OMP critical-section heap merge,
                                   gamma_index_ivfpq.cc:848-866)
@@ -45,31 +46,26 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.4.35 exposes shard_map at top level
-    from jax import shard_map as _shard_map_mod  # type: ignore
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-except (ImportError, AttributeError):  # pragma: no cover - version fallback
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs, check_rep=False)
-
 from gamma_tpu.ops import pq as pq_ops
 from gamma_tpu.ops.distances import BIG, pairwise_ip, pairwise_l2
-from gamma_tpu.ops.topk import topk_min
-from gamma_tpu.ops.ivf_scan import _select_late, list_bias
+from gamma_tpu.ops.topk import select_min_k, topk_min
+from gamma_tpu.ops.ivf_scan import _select_late, list_bias, sq_raw_dist_xla
 from gamma_tpu.realtime.invert_index import IVFState
 
 LIST_AXIS = "l"    # inverted lists + raw-vector rows sharded over this
 QUERY_AXIS = "q"   # query batch sharded over this
 
 
+def shard_map(f, mesh, in_specs, out_specs):
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
+
+
 def build_mesh(n_list_shards: int, n_query_shards: int = 1,
                devices=None) -> Mesh:
+    """A (q, l) mesh over the first n_query_shards * n_list_shards
+    devices.  The shape follows the algorithm alone: the cards of one
+    host are joined all to all, so no device order is preferred."""
     devices = np.asarray(devices if devices is not None else jax.devices())
     need = n_list_shards * n_query_shards
     assert devices.size >= need, (
@@ -164,7 +160,7 @@ def _local_ivfpq_search(codes, vids, docids, lens, cents_l, cnorms_l,
                         cb, cb_norms, queries, penalty, live_n, raw_l,
                         queries_raw,
                         *, nprobe, local_probe, recall_num, k, metric,
-                        rerank, v_per_shard, scan_impl="xla",
+                        rerank, v_per_shard,
                         use_validity=False, packed=False,
                         by_residual=True):
     codebooks = pq_ops.PQCodebooks(cb, cb_norms)
@@ -182,7 +178,7 @@ def _local_ivfpq_search(codes, vids, docids, lens, cents_l, cnorms_l,
         jnp.arange(l_loc, dtype=jnp.int32)[None, :], dloc.shape)
     ld, lids = topk_min(dloc, local_ids, m)          # ascending
 
-    # 2. global probe threshold over ICI (tiny all_gather)
+    # 2. global probe threshold (tiny all_gather)
     all_d = jax.lax.all_gather(ld, LIST_AXIS, axis=1, tiled=True)
     n_glob = min(nprobe, all_d.shape[1])
     gd, _ = topk_min(all_d, jnp.zeros_like(all_d, jnp.int32), n_glob)
@@ -193,61 +189,38 @@ def _local_ivfpq_search(codes, vids, docids, lens, cents_l, cnorms_l,
 
     # 3. ADC scan of the selected local lists.  The per-(list, slot)
     # mask bias (in-length, tombstone, validity-or-penalty —
-    # ops/ivf_scan.list_bias) is computed once over the LOCAL lists and
-    # rides the grouped kernel's tile stream; ids materialize late
-    # (after select) so no [B, P, cap] i32 gathers exist on this path.
+    # ops/ivf_scan.list_bias) is computed once over the LOCAL lists; ids
+    # materialize late (after select) so no [B, P, cap] i32 gathers
+    # exist on this path.
     bias_l = list_bias(docids, lens, cap,
                        penalty=penalty, live_n=live_n if use_validity
                        else None)
-    if scan_impl == "pallas":
-        # grouped MXU kernel (ops/pallas_gadc.py): pallas_call runs
-        # per-shard inside shard_map over the LOCAL codes/centroids; the
-        # full distance is local-coarse + adc for both metrics.  This
-        # replaces the take_along_axis scan the repo measured at
-        # 3.5-5.7 s/batch on TPU (docs/perf notes, round 2).
-        # packed=True scans FastScan's two-per-byte 4-bit codes in the
-        # same kernel (unpack happens in-register, ops/pallas_gadc.py).
-        from gamma_tpu.ops.pallas_gadc import grouped_adc
-        adc = grouped_adc(codes, lens, sel_ids, queries, cents_l,
-                          codebooks, metric=metric, bias=bias_l,
-                          packed=packed, residual=by_residual)
-        if metric == "ip":
-            dist = adc + (sel_d[..., None] if by_residual else 0.0)
-        elif by_residual:
-            dist = adc + sel_d[..., None]
-        else:
-            # raw-coded 4-bit (reference FastScan layout): adc carries
-            # -2 q.dq + ||dq||²; add the per-query ||q||² constant
-            qn = jnp.sum(queries.astype(jnp.float32) ** 2, axis=-1)
-            dist = adc + qn[:, None, None]
+    codes_g = jnp.take(codes, sel_ids, axis=0)   # [B, P, cap, W]
+    if packed:
+        codes_g = pq_ops.unpack_nibbles(codes_g)
+    if metric == "ip":
+        lut = -pq_ops.ip_lut(codebooks, queries)     # [B, M, ksub]
+        lut = jnp.broadcast_to(lut[:, None],
+                               (lut.shape[0], p_loc) + lut.shape[1:])
+        base = sel_d[..., None] if by_residual else 0.0  # -q.c
+    elif by_residual:
+        probed = jnp.take(cents_l, sel_ids, axis=0)  # [B, P, d]
+        residual = queries.astype(jnp.float32)[:, None, :] - probed
+        lut = pq_ops.l2_lut(codebooks, residual)
+        base = 0.0
     else:
-        codes_g = jnp.take(codes, sel_ids, axis=0)   # [B, P, cap, W]
-        if packed:
-            from gamma_tpu.ops.pallas_adc import unpack_nibbles
-            codes_g = unpack_nibbles(codes_g)
-        if metric == "ip":
-            lut = -pq_ops.ip_lut(codebooks, queries)     # [B, M, ksub]
-            lut = jnp.broadcast_to(lut[:, None],
-                                   (lut.shape[0], p_loc) + lut.shape[1:])
-            base = sel_d[..., None] if by_residual else 0.0  # -q.c
-        elif by_residual:
-            probed = jnp.take(cents_l, sel_ids, axis=0)  # [B, P, d]
-            residual = queries.astype(jnp.float32)[:, None, :] - probed
-            lut = pq_ops.l2_lut(codebooks, residual)
-            base = 0.0
-        else:
-            lut = pq_ops.l2_lut(codebooks, queries)      # [B, M, ksub]
-            lut = jnp.broadcast_to(lut[:, None],
-                                   (lut.shape[0], p_loc) + lut.shape[1:])
-            base = 0.0
-        dist = (pq_ops.adc_scan(lut, codes_g) + base
-                + jnp.take(bias_l, sel_ids, axis=0))
+        lut = pq_ops.l2_lut(codebooks, queries)      # [B, M, ksub]
+        lut = jnp.broadcast_to(lut[:, None],
+                               (lut.shape[0], p_loc) + lut.shape[1:])
+        base = 0.0
+    dist = (pq_ops.adc_scan(lut, codes_g) + base
+            + jnp.take(bias_l, sel_ids, axis=0))
     dist = dist + jnp.where(sel_ok, 0.0, BIG)[..., None]
     dist = jnp.minimum(dist, BIG)
     rd, rdoc, rvid = _select_late(dist, sel_ids, docids, vids, cap,
                                   recall_num)
 
-    # 4. ICI top-k merge (replaces OMP critical heap merge)
+    # 4. collective top-k merge (replaces OMP critical heap merge)
     rd = jax.lax.all_gather(rd, LIST_AXIS, axis=1, tiled=True)
     rdoc = jax.lax.all_gather(rdoc, LIST_AXIS, axis=1, tiled=True)
     rvid = jax.lax.all_gather(rvid, LIST_AXIS, axis=1, tiled=True)
@@ -264,7 +237,7 @@ def _local_ivfpq_search(codes, vids, docids, lens, cents_l, cnorms_l,
     # candidate row lives on exactly one shard (contiguous row split);
     # that owner computes the exact distance locally and every other
     # shard contributes 0, so psumming the [B, R] distances reassembles
-    # the exact result with d x less ICI traffic than psumming the
+    # the exact result with d x less interconnect traffic than psumming the
     # [B, R, d] candidate rows (52 MB → 0.4 MB per step at B=1024,
     # R=100, d=128).  Rerank runs in the UNROTATED space (raw rows are
     # unrotated); with OPQ `queries` is rotated → use queries_raw.
@@ -294,7 +267,6 @@ def sharded_ivfpq_search_fn(mesh: Mesh, *, nprobe: int, recall_num: int,
                             rerank: bool = True,
                             local_probe: Optional[int] = None,
                             v_per_shard: int,
-                            scan_impl: Optional[str] = None,
                             use_validity: bool = False,
                             packed: bool = False,
                             by_residual: bool = True):
@@ -308,15 +280,11 @@ def sharded_ivfpq_search_fn(mesh: Mesh, *, nprobe: int, recall_num: int,
     s = mesh.shape[LIST_AXIS]
     if local_probe is None:
         local_probe = min(nprobe, 2 * (-(-nprobe // s)) + 2)
-    if scan_impl is None:
-        # the grouped MXU kernel on real TPUs; portable XLA elsewhere
-        scan_impl = ("pallas" if mesh.devices.flat[0].platform == "tpu"
-                     else "xla")
 
     body = functools.partial(
         _local_ivfpq_search, nprobe=nprobe, local_probe=local_probe,
         recall_num=recall_num, k=k, metric=metric, rerank=rerank,
-        v_per_shard=v_per_shard, scan_impl=scan_impl,
+        v_per_shard=v_per_shard,
         use_validity=use_validity, packed=packed,
         by_residual=by_residual)
 
@@ -350,8 +318,8 @@ def sharded_ivfpq_search_fn(mesh: Mesh, *, nprobe: int, recall_num: int,
 
 # ----------------------------------------------------------------------
 # sharded residual-SQ8 capacity scan (no rerank: exact distances to the
-# dequantized points come straight out of the list scan, so the ICI
-# merge is the LAST step — no psum reassembly of raw candidate rows)
+# dequantized points come straight out of the list scan, so the
+# collective merge is the LAST step — no psum reassembly of raw candidate rows)
 # ----------------------------------------------------------------------
 
 class ShardedIVFSQ(NamedTuple):
@@ -419,7 +387,7 @@ def _local_ivfsq_search(vids, docids, lens, sq_codes, sq_norms,
                         sq_scale, sq_off, cents_l, cnorms_l,
                         queries, penalty, live_n,
                         *, nprobe, local_probe, k, metric,
-                        scan_impl="xla", use_validity=False):
+                        use_validity=False):
     l_loc = cents_l.shape[0]
     cap = vids.shape[1]
     m = min(nprobe, l_loc)
@@ -442,31 +410,21 @@ def _local_ivfsq_search(vids, docids, lens, sq_codes, sq_norms,
     sel_ok = sel_d <= thr[:, None]
 
     # 3. exact SQ8 scan of the selected local lists (full distance —
-    # the centroid term is folded in by the kernel/twin); the per-slot
-    # mask bias folds into the kernel's norms stream and ids
+    # the centroid term is folded in by sq_raw_dist_xla); ids
     # materialize late — no [B, P, cap] i32 gathers on this path
     bias_l = list_bias(docids, lens, cap,
                        penalty=penalty, live_n=live_n if use_validity
                        else None)
-    if scan_impl == "pallas":
-        from gamma_tpu.ops.pallas_gsq import grouped_sq_scan
-        dist = grouped_sq_scan(sq_codes, sq_norms, lens, sel_ids,
-                               queries, sq_scale, sq_off,
-                               centroids=cents_l, metric=metric,
-                               bias=bias_l)
-    else:
-        from gamma_tpu.ops.ivf_scan import sq_raw_dist_xla
-        dist = (sq_raw_dist_xla(sq_codes, sq_norms, sq_scale, sq_off,
-                                cents_l, sel_ids, queries, metric=metric)
-                + jnp.take(bias_l, sel_ids, axis=0))
+    dist = (sq_raw_dist_xla(sq_codes, sq_norms, sq_scale, sq_off,
+                            cents_l, sel_ids, queries, metric=metric)
+            + jnp.take(bias_l, sel_ids, axis=0))
     dist = dist + jnp.where(sel_ok, 0.0, BIG)[..., None]
     dist = jnp.minimum(dist, BIG)
 
-    # 4. local top-k (exact), then ONE ICI merge — distances
-    # are already exact, so k (not recall_num) rides the interconnect
-    # and nothing is re-read afterwards
-    rd, rdoc, rvid = _select_late(dist, sel_ids, docids, vids, cap, k,
-                                  exact=True)
+    # 4. local top-k, then ONE collective merge — distances are
+    # already exact, so k (not recall_num) rides the interconnect and
+    # nothing is re-read afterwards
+    rd, rdoc, rvid = _select_late(dist, sel_ids, docids, vids, cap, k)
     rd_g = jax.lax.all_gather(rd, LIST_AXIS, axis=1, tiled=True)
     rdoc_g = jax.lax.all_gather(rdoc, LIST_AXIS, axis=1, tiled=True)
     rvid_g = jax.lax.all_gather(rvid, LIST_AXIS, axis=1, tiled=True)
@@ -482,7 +440,6 @@ def _local_ivfsq_search(vids, docids, lens, sq_codes, sq_norms,
 def sharded_ivfsq_search_fn(mesh: Mesh, *, nprobe: int, k: int,
                             metric: str = "l2",
                             local_probe: Optional[int] = None,
-                            scan_impl: Optional[str] = None,
                             use_validity: bool = False):
     """Jitted sharded SQ8 capacity search for a fixed geometry.
 
@@ -492,14 +449,10 @@ def sharded_ivfsq_search_fn(mesh: Mesh, *, nprobe: int, k: int,
     s = mesh.shape[LIST_AXIS]
     if local_probe is None:
         local_probe = min(nprobe, 2 * (-(-nprobe // s)) + 2)
-    if scan_impl is None:
-        scan_impl = ("pallas" if mesh.devices.flat[0].platform == "tpu"
-                     else "xla")
 
     body = functools.partial(
         _local_ivfsq_search, nprobe=nprobe, local_probe=local_probe,
-        k=k, metric=metric, scan_impl=scan_impl,
-        use_validity=use_validity)
+        k=k, metric=metric, use_validity=use_validity)
 
     lists3 = P(LIST_AXIS, None, None)
     lists2 = P(LIST_AXIS, None)
@@ -566,18 +519,18 @@ def shard_dense(mesh: Mesh, recon, recon_norms, recon_valid,
 
 def sharded_dense_search_fn(mesh: Mesh, *, recall_num: int, k: int,
                             metric: str = "l2", rerank: bool = True,
-                            rows_per_shard: int,
-                            recall_target: float = 0.95):
-    """Dense scan over row-sharded reconstructions: local MXU scan +
-    local ApproxTopK, ICI merge, psum-gathered exact rerank.  Queries
-    sharded over "q".  penalty is vid-aligned and row-sharded over "l"."""
+                            rows_per_shard: int):
+    """Dense scan over row-sharded reconstructions: local matmul scan +
+    local select_min_k, collective merge, psum-gathered exact rerank.
+    Queries sharded over "q".  penalty is vid-aligned and row-sharded
+    over "l"."""
 
     def body(recon_l, bias_l, raw_l, queries, queries_raw):
         # bias_l = norms + validity + penalty pre-fused into ONE [R]
         # operand (built by `search` below as a tiny sharded kernel): a
-        # single broadcast keeps the matmul → ApproxTopK chain fused —
-        # two broadcast operands force XLA to materialize the [B, R]
-        # distance tile in HBM twice (+45%/batch, see ops/dense_scan.py)
+        # single broadcast keeps the matmul → select chain from
+        # materializing the [B, R] distance tile twice (see
+        # ops/dense_scan.py)
         my = jax.lax.axis_index(LIST_AXIS)
         qf = queries.astype(jnp.float32)
         scale = -1.0 if metric == "ip" else -2.0
@@ -587,17 +540,8 @@ def sharded_dense_search_fn(mesh: Mesh, *, recall_num: int, k: int,
             preferred_element_type=jnp.float32)
         dist = cross + bias_l[None, :]
         r = max(recall_num, k)
-        if dist.shape[1] <= max(4 * r, 2048):
-            nd, lidx = jax.lax.top_k(-dist, min(r, dist.shape[1]))
-            rd = -nd
-            if rd.shape[1] < r:
-                padw = r - rd.shape[1]
-                rd = jnp.pad(rd, ((0, 0), (0, padw)), constant_values=BIG)
-                lidx = jnp.pad(lidx, ((0, 0), (0, padw)),
-                               constant_values=0)
-        else:
-            rd, lidx = jax.lax.approx_min_k(dist, r,
-                                            recall_target=recall_target)
+        rd, lidx = select_min_k(dist, r)
+        lidx = jnp.maximum(lidx, 0)       # padding slots stay at BIG
         if metric != "ip":
             # the per-query ||q||² constant is rank-neutral — add it
             # AFTER selection (identical across shards, so the merged
@@ -613,7 +557,7 @@ def sharded_dense_search_fn(mesh: Mesh, *, recall_num: int, k: int,
             return out, jnp.where(out >= BIG, -1, sel[:, :k])
         # owner-computes exact rerank + DISTANCE psum (each candidate row
         # lives on one shard; psumming [B, R] masked distances replaces
-        # psumming [B, R, d] rows — d x less ICI traffic)
+        # psumming [B, R, d] rows — d x less interconnect traffic)
         local_idx = sel - my * rows_per_shard
         in_range = (local_idx >= 0) & (local_idx < rows_per_shard)
         rows = jnp.take(raw_l, jnp.clip(local_idx, 0, rows_per_shard - 1),
@@ -656,14 +600,17 @@ def sharded_dense_search_fn(mesh: Mesh, *, recall_num: int, k: int,
 
 def sharded_flat_search_fn(mesh: Mesh, *, k: int, metric: str = "l2",
                            v_per_shard: int):
-    """Exact search over a row-sharded corpus: local scan + ICI merge."""
+    """Exact search over a row-sharded corpus: local scan + collective
+    merge."""
 
     def body(raw_l, norms_l, queries, penalty_l):
         my = jax.lax.axis_index(LIST_AXIS)
+        # exact contract, as the single-device FLAT scan
+        hp = jax.lax.Precision.HIGHEST
         if metric == "ip":
-            d = -pairwise_ip(queries, raw_l)
+            d = -pairwise_ip(queries, raw_l, precision=hp)
         else:
-            d = pairwise_l2(queries, raw_l, norms_l)
+            d = pairwise_l2(queries, raw_l, norms_l, precision=hp)
         d = jnp.minimum(d + penalty_l[None, :], BIG)
         gids = (my * v_per_shard
                 + jnp.arange(v_per_shard, dtype=jnp.int32))

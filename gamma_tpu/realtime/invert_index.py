@@ -3,7 +3,7 @@
 This re-derives gamma's lock-free realtime core (realtime/realtime_mem_data
 .{h,cc}) on an immutable-tensor substrate:
 
-  reference mechanism                      → TPU-native mechanism
+  reference mechanism                      → device mechanism
   ---------------------------------------------------------------------
   per-bucket malloc'd code/vid arrays      → codes[nlist, cap, M] u8,
                                              vids/docids[nlist, cap] i32

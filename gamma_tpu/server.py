@@ -2,7 +2,7 @@
 
 The reference is an embedded library: Vearch's Go partition server links
 it via cgo (go/gamma/gamma.go) and every call crosses a flatbuffers
-boundary.  Here the engine lives in the TPU host process, so the
+boundary.  Here the engine lives in the process that owns the GPU, so the
 language-neutral contract is the wire format (gamma_tpu/idl/wire.py)
 carried over a socket with a minimal frame protocol:
 

@@ -5,10 +5,10 @@ concurrent B-tree per indexed field mapping values → adaptive
 sparse/dense posting bitmaps, with async writes and bitmap AND/OR/NOT
 composition (Search:1015-1115, Intersect:1117-1200).
 
-TPU-native re-derivation: there is no B-tree.  Numeric predicates are
+Device re-derivation: there is no B-tree.  Numeric predicates are
 evaluated directly over device-mirrored columns inside the search step
 (a [N] compare is a trivially-vectorized VPU pass, far cheaper than tree
-walks at TPU bandwidth), producing the fused penalty array.  Term (string)
+walks at device memory bandwidth), producing the fused penalty array.  Term (string)
 filters keep a host inverted map term→docid list; term predicates compose
 into a boolean mask uploaded only when present.
 

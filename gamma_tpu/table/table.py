@@ -4,7 +4,7 @@ Reference: table/table.{h,cc} — fixed-width rows (INT/LONG/FLOAT/DOUBLE
 inline, STRING as a (block, offset, len) ref into a string heap) stored in
 StorageManager segments, with a libcuckoo `_id`→docid map.
 
-TPU-native split: fixed-width fields are COLUMNS (one numpy array per
+Host/device split: fixed-width fields are COLUMNS (one numpy array per
 field, grow-by-doubling) — columnar because the device consumes whole
 columns to evaluate filters; strings live in a host-side arena; the key
 map uses the native sharded-lock C++ map (gamma_tpu.native.NativeKeyMap,

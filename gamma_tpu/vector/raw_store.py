@@ -5,7 +5,7 @@ a segmented store with an in-RAM tier and disk persistence, plus
 `VIDMgr` mapping vid↔docid when docs carry multiple vectors per field
 (vector/raw_vector_common.h:44-147).
 
-TPU-native split:
+Host/device split:
   * HOST master: one grow-by-doubling numpy array (f32) — the source of
     truth for persistence, GetVector, and training gathers.  `Mmap`
     store_type backs it with a disk memmap instead of RAM.

@@ -22,7 +22,7 @@ from gamma_tpu.index.model import RetrievalModel
 from gamma_tpu.vector.raw_store import RawVectorStore
 
 RT_BATCH = 8192          # indexer pump batch (reference uses 1000 on CPU;
-                         # TPU amortizes launches better with bigger steps)
+                         # the device amortizes launches better with bigger steps)
 MAX_UPDATES_PER_CYCLE = 20000   # reference: vector_manager.cc:366
 
 

@@ -2,8 +2,8 @@
 //
 // Reference: go/gamma/gamma.go:20-132 — the reference binds its C ABI
 // via cgo + flatbuffers, which couples the Go build to the engine's
-// shared object.  The TPU engine's process model is different (the
-// engine owns a TPU runtime and serves over a socket — gamma_tpu/
+// shared object.  The engine's process model is different (the
+// engine owns the GPU and serves over a socket — gamma_tpu/
 // server.py), so this SDK is pure Go with zero cgo: it speaks the
 // 5-byte-request / 8-byte-response frame protocol carrying GWIR
 // messages (gamma_tpu/idl/wire.py), the same contract as the C++
@@ -178,7 +178,7 @@ func WireUnpack(data []byte, expectType byte) (json.RawMessage, [][]byte, error)
 // --------------------------------------------------------------- types
 
 // Config mirrors gamma_tpu.config.EngineConfig (reference:
-// idl/fbs/config.fbs {path, log_dir} plus the TPU engine's knobs).
+// idl/fbs/config.fbs {path, log_dir} plus the engine's knobs).
 // Zero values fall back to the engine-side defaults.
 type Config struct {
 	Path                string `json:"path"`

@@ -1,6 +1,6 @@
 // libgamma_host — native host-side runtime for gamma_tpu.
 //
-// TPU-native re-derivation of the reference's host storage stack:
+// Re-derivation of the reference's host storage stack:
 //   * StorageManager/Segment/Block + AsyncWriter
 //     (storage/storage_manager.{h,cc}, storage/segment.{h,cc},
 //      storage/async_writer.cc:51-110 — coalesced pwrite thread):
@@ -33,7 +33,20 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
+// The block store needs only three zstd entry points, all stable ABI.
+// Where the development header is not installed (a runtime-only libzstd),
+// declare them here and link against libzstd.so.1 directly.
+#if __has_include(<zstd.h>)
 #include <zstd.h>
+#else
+extern "C" {
+size_t ZSTD_compressBound(size_t srcSize);
+size_t ZSTD_compress(void* dst, size_t dstCapacity, const void* src,
+                     size_t srcSize, int compressionLevel);
+size_t ZSTD_decompress(void* dst, size_t dstCapacity, const void* src,
+                       size_t compressedSize);
+}
+#endif
 
 #include <list>
 #include <utility>

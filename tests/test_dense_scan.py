@@ -37,7 +37,7 @@ def test_dense_matches_gather_recall(built, rng):
     The tiers select candidates differently — dense ranks a PQ-decoded
     bf16 mirror then reranks recall_num exactly; gather scans residual-
     SQ8 exact-to-quantized-point distances with NO rerank (ops/
-    pallas_gsq.py) — so mode-vs-mode set equality is NOT the contract
+    sq.py) — so mode-vs-mode set equality is NOT the contract
     (the SQ8 tier is measurably MORE accurate than PQ candidate select
     at this geometry). The contract is recall vs exact for each."""
     store, idx = built
@@ -52,8 +52,7 @@ def test_dense_matches_gather_recall(built, rng):
     d2 = ((np.asarray(q, np.float64)[:, None, :]
            - corpus[None]) ** 2).sum(-1)
     extop = np.argsort(d2, axis=1)[:, :k]
-    spd = SearchParams.from_dict({"scan_mode": "dense",
-                                  "recall_target": 0.99})
+    spd = SearchParams.from_dict({"scan_mode": "dense"})
     spg = SearchParams.from_dict({"scan_mode": "gather",
                                   "nprobe": idx.p.ncentroids})
     dd, ddoc, _ = idx.search(q, pen, spd, k)

@@ -12,7 +12,6 @@ from gamma_tpu.config import SearchParams
 from gamma_tpu.index import create_model
 from gamma_tpu.index.ivfpq_fastscan import IVFPQFastScanIndex
 from gamma_tpu.ops import pq as pq_ops
-from gamma_tpu.ops.pallas_adc import (adc_scan_pallas_fs, unpack_nibbles)
 from gamma_tpu.vector.raw_store import RawVectorStore
 
 from tests.conftest import make_blobs
@@ -52,7 +51,7 @@ def test_codes_are_packed_nibbles(built):
     assert codes.shape[-1] == 16          # 32 subquantizers / 2
     # unpack round-trips through the packing used at encode time
     _, packed, _, _ = idx.encode_batch(corpus[:32])
-    un = np.asarray(unpack_nibbles(packed))[:32]
+    un = np.asarray(pq_ops.unpack_nibbles(packed))[:32]
     assert un.max() <= 15
     repacked = un[:, 0::2] | (un[:, 1::2] << 4)
     assert (repacked == np.asarray(packed)[:32]).all()
@@ -88,19 +87,6 @@ def test_dense_mode_matches_gather(built):
     agree = np.mean([len(set(np.asarray(dd)[i]) & set(np.asarray(dg)[i]))
                      / 10 for i in range(16)])
     assert agree >= 0.9, agree
-
-
-def test_pallas_fs_kernel_interpret(built):
-    corpus, store, idx = built
-    q = idx._rotate(jnp.asarray(corpus[:4]))
-    from gamma_tpu.ops.ivf_scan import coarse_assign
-    _, lids = coarse_assign(q, idx.centroids, idx.cent_norms, 8, "l2")
-    lut = pq_ops.l2_lut(idx.pq, q)
-    out = adc_scan_pallas_fs(idx.state.codes, lids, lut, interpret=True)
-    codes_g = unpack_nibbles(jnp.take(idx.state.codes, lids, axis=0))
-    ref = pq_ops.adc_scan(lut[:, None], codes_g)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-5, atol=1e-4)
 
 
 def test_delete_and_update(built):

@@ -323,7 +323,7 @@ def test_build_sq_sidecar_posthoc_matches_ingest(rng_mod):
     build_sq_sidecar(), must produce the same sidecar contents (same
     quantized codes for live slots) and the same gather-mode search
     results as one that maintained the sidecar at ingest time — the
-    10M bench relies on this to stay inside HBM."""
+    10M bench relies on this to stay inside device memory."""
     rng = np.random.default_rng(21)
     n, d, nlist = 6000, 64, 32
     centers = rng.normal(size=(48, d)).astype(np.float32)
@@ -422,8 +422,7 @@ def test_cap_eff_trim_matches_full_scan(built, rng_mod):
     assert ce <= idx.state.cap
     args = (idx.state, idx.centroids, idx.cent_norms, idx.pq, q, pen,
             store.device)
-    kw = dict(nprobe=8, recall_num=64, k=10, metric="l2", rerank=True,
-              scan_impl="xla")
+    kw = dict(nprobe=8, recall_num=64, k=10, metric="l2", rerank=True)
     d0, doc0, vid0 = ivf_scan.ivfpq_search(*args, cap_eff=0, **kw)
     d1, doc1, vid1 = ivf_scan.ivfpq_search(*args, cap_eff=ce, **kw)
     np.testing.assert_array_equal(np.asarray(doc0), np.asarray(doc1))
@@ -432,7 +431,8 @@ def test_cap_eff_trim_matches_full_scan(built, rng_mod):
 
 def test_sq_sidecar_ladder_alloc_and_growth():
     """The SQ8 sidecar allocates at ladder(max_len), NOT the posting
-    cap (the 3x presize slack cost ~1.7 GB dead HBM at 10M), and must
+    cap (the 3x presize slack cost ~1.7 GB of dead device memory at
+    10M), and must
     GROW before any append past its width — a scatter past the sidecar
     width would drop rows silently and lose recall."""
     rng = np.random.default_rng(5)
@@ -501,7 +501,7 @@ def test_compact_with_narrow_sidecar():
 
 def test_hnsw_quantizer_param_rejected():
     """The reference accepts an "hnsw" coarse-quantizer param block
-    (gamma_index_ivfpq.cc:146-156); this engine substitutes flat MXU
+    (gamma_index_ivfpq.cc:146-156); this engine substitutes flat matmul
     assignment and must REJECT the param loudly, not ignore it."""
     store = RawVectorStore("vec", 16)
     with pytest.raises(ValueError, match="hnsw"):

@@ -1,16 +1,13 @@
 """Per-list mask bias + late id materialization contracts.
 
-These paths replace the [B, P, cap] gathered masks/id arrays of earlier
-rounds (the r3 10M gather phase OOM'd on exactly those transients —
-BENCH_r03.json tenm).  Contracts under test:
+These paths replace [B, P, cap] gathered masks/id arrays, whose
+transients dominated device memory at the 10M gather geometry.
+Contracts under test:
 
   * list_bias == the gathered _candidate_mask_* forms for every slot
-  * grouped_adc / grouped_sq_scan with bias= fold the mask IN-kernel,
-    including slots beyond the live length in both live and skipped
-    tiles (the kernels' old 0.0-beyond-length contract is replaced by
-    bias emission when bias is passed)
-  * _select_late (approx and two-stage exact) returns the same
-    candidates as the flat oracle select
+  * _select_late returns the same candidates as the flat oracle select,
+    on both sides of the exact/chunk-min width threshold
+    (ops/topk.select_min_k)
 """
 
 import jax
@@ -18,13 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gamma_tpu.ops import pq as pq_ops
 from gamma_tpu.ops.distances import BIG
 from gamma_tpu.ops.ivf_scan import (_candidate_mask_penalty,
                                     _candidate_mask_validity,
                                     _select_late, list_bias)
-from gamma_tpu.ops.pallas_gadc import grouped_adc
-from gamma_tpu.ops.pallas_gsq import encode_sq, grouped_sq_scan, train_sq
+from gamma_tpu.ops.topk import EXACT_SELECT_MAX_WIDTH
 
 
 @pytest.fixture
@@ -67,82 +62,34 @@ def test_list_bias_matches_gathered_masks(rng):
     np.testing.assert_array_equal(np.asarray(got_v), np.asarray(ref_v))
 
 
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_grouped_adc_bias_fused(rng, metric):
-    nlist, cap, m, ksub, d = 8, 128, 8, 16, 32
-    x = rng.normal(size=(2048, d)).astype(np.float32)
-    pq = pq_ops.train_pq(jnp.asarray(x), m, nbits=4, iters=2)
-    cents = jnp.asarray(rng.normal(size=(nlist, d)).astype(np.float32))
-    codes = jnp.asarray(
-        rng.integers(0, ksub, size=(nlist, cap, m)).astype(np.uint8))
-    lens, docids = _mk_posting(rng, nlist, cap)
-    queries = jnp.asarray(rng.normal(size=(6, d)).astype(np.float32))
-    list_ids = jnp.asarray(
-        rng.integers(0, nlist, size=(6, 4)).astype(np.int32))
-    bias = list_bias(docids, lens, cap, live_n=jnp.int32(400))
-
-    plain = grouped_adc(codes, lens, list_ids, queries, cents, pq,
-                        metric=metric, interpret=True)
-    fused = grouped_adc(codes, lens, list_ids, queries, cents, pq,
-                        metric=metric, bias=bias, interpret=True)
-    bias_g = np.asarray(jnp.take(bias, list_ids, axis=0))
-    live = bias_g < BIG
-    # live slots: fused == plain + bias (penalty values add through)
-    np.testing.assert_allclose(np.asarray(fused)[live],
-                               (np.asarray(plain) + bias_g)[live],
-                               rtol=1e-5, atol=1e-5)
-    # dead slots (in-length tombstones AND beyond-length padding, in
-    # live and skipped tiles alike): >= BIG with no caller-side mask
-    assert np.all(np.asarray(fused)[~live] >= BIG)
-
-
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_grouped_sq_bias_fused(rng, metric):
-    nlist, cap, d = 6, 96, 32
-    res = rng.normal(size=(4096, d)).astype(np.float32)
-    scale, off = train_sq(jnp.asarray(res))
-    cents = jnp.asarray(rng.normal(size=(nlist, d)).astype(np.float32))
-    lens, docids = _mk_posting(rng, nlist, cap)
-    rows = rng.normal(size=(nlist * cap, d)).astype(np.float32)
-    codes, norms = encode_sq(jnp.asarray(rows), scale, off, d_pad=d)
-    codes = codes.reshape(nlist, cap, d)
-    norms = norms.reshape(nlist, cap)
-    queries = jnp.asarray(rng.normal(size=(5, d)).astype(np.float32))
-    list_ids = jnp.asarray(
-        rng.integers(0, nlist, size=(5, 3)).astype(np.int32))
-    bias = list_bias(docids, lens, cap, live_n=jnp.int32(400))
-
-    plain = grouped_sq_scan(codes, norms, lens, list_ids, queries,
-                            scale, off, centroids=cents, metric=metric,
-                            interpret=True)
-    fused = grouped_sq_scan(codes, norms, lens, list_ids, queries,
-                            scale, off, centroids=cents, metric=metric,
-                            bias=bias, interpret=True)
-    bias_g = np.asarray(jnp.take(bias, list_ids, axis=0))
-    live = bias_g < BIG
-    np.testing.assert_allclose(np.asarray(fused)[live],
-                               (np.asarray(plain) + bias_g)[live],
-                               rtol=1e-4, atol=1e-4)
-    assert np.all(np.asarray(fused)[~live] >= BIG)
-
-
-@pytest.mark.parametrize("exact", [False, True])
-def test_select_late_matches_oracle(rng, exact):
-    b, p, cap, nlist, r = 4, 3, 64, 8, 7
+@pytest.mark.parametrize("wide", [False, True])
+def test_select_late_matches_oracle(rng, wide):
+    """wide=False: the [B, P*cap] row is narrow enough for the exact
+    select; wide=True: past EXACT_SELECT_MAX_WIDTH, through the strided
+    chunk-min prefilter (the winners are planted in distinct bins, so
+    the prefilter must return exactly the oracle's candidates)."""
+    b, p, nlist, r = 4, 3, 8, 7
+    cap = 64 if not wide else EXACT_SELECT_MAX_WIDTH // 2
+    assert (p * cap > EXACT_SELECT_MAX_WIDTH) == wide
     list_ids = np.stack([rng.choice(nlist, p, replace=False)
                          for _ in range(b)]).astype(np.int32)
     # distinct distances → unique oracle ordering
-    dist = rng.permutation(b * p * cap).reshape(b, p, cap) \
-        .astype(np.float32)
+    dist = (rng.permutation(b * p * cap).reshape(b, p, cap)
+            .astype(np.float32) + 1000.0)
     # poison a strip as dead
     dist[:, :, cap - 5:] = BIG
+    # plant the r winners at consecutive flat positions: consecutive
+    # positions never share a strided select bin
+    for i in range(b):
+        s = rng.integers(0, cap - 5 - r)
+        dist[i, 1, s: s + r] = rng.permutation(r).astype(np.float32)
     docids = rng.permutation(nlist * cap).reshape(nlist, cap) \
         .astype(np.int32)
-    vids = (docids + 100000).astype(np.int32)
+    vids = (docids + 10_000_000).astype(np.int32)
 
     rd, rdoc, rvid = _select_late(
         jnp.asarray(dist), jnp.asarray(list_ids), jnp.asarray(docids),
-        jnp.asarray(vids), cap, r, exact=exact)
+        jnp.asarray(vids), cap, r)
     flat = dist.reshape(b, -1)
     order = np.argsort(flat, axis=1)[:, :r]
     ref_d = np.take_along_axis(flat, order, axis=1)
@@ -168,7 +115,7 @@ def test_select_late_pads_past_width(rng):
     r = p * cap + 5
     rd, rdoc, _ = _select_late(
         jnp.asarray(dist), jnp.asarray(list_ids), jnp.asarray(docids),
-        jnp.asarray(docids), cap, r, exact=True)
+        jnp.asarray(docids), cap, r)
     assert rd.shape == (b, r)
     assert np.all(np.asarray(rd)[:, p * cap:] >= BIG)
     assert np.all(np.asarray(rdoc)[:, p * cap:] == -1)

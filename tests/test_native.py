@@ -105,3 +105,32 @@ def test_keymap(tmp_path):
     assert km2.get("k7") == 7 and km2.get("k500") == -1
     km.close()
     km2.close()
+
+
+def test_builds_without_zstd_header(tmp_path, monkeypatch):
+    """A machine with the zstd runtime but no development header still
+    builds the library: gamma_host.cc declares the zstd calls itself."""
+    import subprocess
+    src = os.path.join(native._REPO, "native", "gamma_host.cc")
+    with open(src) as f:
+        code = f.read()
+    assert "__has_include(<zstd.h>)" in code
+    no_hdr = tmp_path / "gamma_host_no_zstd_h.cc"
+    no_hdr.write_text(code.replace("__has_include(<zstd.h>)", "0"))
+    so = tmp_path / "libgamma_host.so"
+    subprocess.run(["g++", "-O0", "-std=c++17", "-fPIC", "-shared",
+                    "-pthread", "-fvisibility=hidden", "-Wl,--no-undefined",
+                    "-o", str(so), str(no_hdr), "-l:libzstd.so.1"],
+                   check=True, capture_output=True)
+    monkeypatch.setattr(native, "_SO", str(so))
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native.available()
+    # sealing a block compresses it; reading it back decompresses it
+    rows = np.arange(64 * 8, dtype=np.int32).reshape(64, 8)
+    z = native.ZBlockStorage(str(tmp_path / "z"), "v", row_bytes=32,
+                             rows_per_block=16)
+    z.add(rows)
+    assert 0 < z.comp_bytes() < rows.nbytes
+    np.testing.assert_array_equal(
+        z.get_range(0, 64, np.int32).reshape(64, 8), rows)
+    z.close()

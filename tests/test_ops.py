@@ -17,7 +17,7 @@ def test_pairwise_l2_matches_numpy(rng):
     x = rng.normal(size=(33, 16)).astype(np.float32)
     got = np.asarray(pairwise_l2(jnp.asarray(q), jnp.asarray(x)))
     want = ((q[:, None] - x[None]) ** 2).sum(-1)
-    # the norm-expansion formula trades a little precision for the MXU
+    # the norm-expansion formula trades a little precision for one matmul
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=5e-2)
 
 
@@ -111,7 +111,7 @@ def test_chunkmin_topk_indices_and_containment():
     """_chunkmin_topk: returned values match flat[ridx]; strided bins
     keep near-contiguous true winners (same-list adjacency) intact."""
     import jax.numpy as jnp
-    from gamma_tpu.ops.ivf_scan import _chunkmin_topk
+    from gamma_tpu.ops.topk import _chunkmin_topk
     rng = np.random.default_rng(3)
     b, w, rn = 8, 200_000, 64
     flat = rng.normal(size=(b, w)).astype(np.float32)

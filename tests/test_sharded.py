@@ -416,8 +416,7 @@ def test_sharded_ivfsq_matches_single_chip(built, rng):
     rd, rdoc, rvid = jax.tree.map(np.asarray, ivf_scan.ivfsq_search(
         idx.state, idx.sq_codes, idx.sq_norms, idx.sq_scale, idx.sq_off,
         idx.centroids, idx.cent_norms, q, penalty,
-        nprobe=nprobe, k=k, metric="l2", scan_impl="xla",
-        cap_eff=cap_eff))
+        nprobe=nprobe, k=k, metric="l2", cap_eff=cap_eff))
     np.testing.assert_allclose(sd, rd, rtol=1e-4, atol=1e-3)
     agree = (sdoc == rdoc).mean()
     assert agree > 0.95, f"docid agreement {agree}"
@@ -442,7 +441,7 @@ def test_sharded_ivfsq_respects_penalty(built, rng):
 
 def test_engine_sharded_sq8_gather(tmp_path, rng):
     """Engine-level sharded serving in GATHER mode routes through the
-    SQ8 sharded path (exact scan, one ICI merge): parity with
+    SQ8 sharded path (exact scan, one collective merge): parity with
     single-chip, filters respected, realtime tail merged."""
     from gamma_tpu import (Doc, EngineConfig, FieldInfo, GammaEngine,
                            RangeFilter, Request, TableInfo, VectorInfo,

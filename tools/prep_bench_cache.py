@@ -1,8 +1,7 @@
 """Pre-populate the bench corpus/GT cache (bench.py CACHE_DIR).
 
-This rig's host CPU throttles in long bursts; the pure-CPU phases of
-bench.py (clustered corpus draws + f64 ground truth) can cost 10-60
-minutes under throttling. Running this once caches them; bench then
+The pure-CPU phases of bench.py (clustered corpus draws + f64 ground
+truth) can cost many minutes at 10M rows. Running this once caches them; bench then
 reproduces the exact same data via the stored post-draw rng states.
 
 Mirrors bench.py's call sequence exactly:
@@ -43,7 +42,7 @@ def main():
         # bench restores the stored post-draw state on hit, so the
         # bench's own (corpus, queries, GT) stay self-consistent; this
         # pre-computes the corpus (the expensive part).  The GT the
-        # bench derives is TPU-assisted and cheap when a chip is up.
+        # bench derives is device-assisted and cheap when a GPU is up.
         nv, nqv = 1_000_000, 256
         corpus_v, _ = bench.make_corpus(nv, 512, 1024, rng, intrinsic=24)
         qv = corpus_v[rng.choice(nv, nqv, replace=False)] + \
